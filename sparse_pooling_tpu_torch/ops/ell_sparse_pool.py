@@ -1,0 +1,55 @@
+"""Fused ELL sparse pool — kernel B.
+
+Port of ``sparse_pooling_tpu.ops.pallas_sparse_pool``: the host builder
+(``data.sparse_matrix.build_sparse_pooling_input``) compiles each frame's
+correspondence to fixed-K ELL tables, and ``sparse_pool_fused`` pools
+``out[t] = sum_k w[t,k] * src[idx[t,k]]`` with them. Dispatch is by tensor
+device: a CUDA tensor launches ``csrc/ell_sparse_pool.cu``, a CPU tensor runs
+the plain ``ops.sparse_pool.sparse_pool_ell``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sparse_pooling_tpu_torch import kernels
+from sparse_pooling_tpu_torch.ops.sparse_pool import sparse_pool_ell
+
+
+@kernels.counted
+def sparse_pool_ell_kernel(
+    src_feat: torch.Tensor,  # [S, C] f32 or bf16
+    ell_src: torch.Tensor,  # [T, K] int32
+    ell_w: torch.Tensor,  # [T, K] f32
+) -> torch.Tensor:
+    """Kernel B on CUDA tensors -> [T, C] in the source dtype."""
+
+    what = "ell_sparse_pool"
+    kernels.require_cuda(src_feat, ell_src, ell_w, what=what)
+    s, c = src_feat.shape
+    t, k = ell_src.shape
+    if ell_src.dtype != torch.int32 or ell_w.dtype != torch.float32 or ell_w.shape != (t, k):
+        raise TypeError(f"{what}: ell_src int32 [T,K] and ell_w float32 [T,K] required")
+    dt = kernels.dtype_code(src_feat, what)
+    out = torch.empty((t, c), dtype=src_feat.dtype, device=src_feat.device)
+    lib = kernels.library("ell_sparse_pool")
+    fn = lib.ell_sparse_pool_launch
+    i = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, i, i, i, ctypes.c_void_p, ctypes.c_void_p, i, i,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(kernels.ptr(src_feat), dt, s, c, kernels.ptr(ell_src), kernels.ptr(ell_w), t, k,
+            kernels.ptr(out), kernels.stream_ptr())
+    kernels.check(lib, rc, what)
+    return out
+
+
+def sparse_pool_fused(src_feat: torch.Tensor, ell_src: torch.Tensor, ell_w: torch.Tensor) -> torch.Tensor:
+    """ELL sparse pool [S, C] -> [T, C]: kernel B on a CUDA tensor, the plain
+    version on a CPU tensor."""
+
+    if src_feat.is_cuda:
+        return sparse_pool_ell_kernel(src_feat, ell_src, ell_w)
+    return sparse_pool_ell(src_feat, ell_src, ell_w)
