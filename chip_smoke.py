@@ -9,9 +9,13 @@ non-zero):
    per source, in parallel) and print the card's name and power limit;
 2. kernels against their plain PyTorch twins on the card, at the shapes the
    main path gives them (inputs recorded from a warm-up request), in bf16
-   features and in f32: max error against a stated tolerance, median times
-   (CUDA events) of kernel, twin and one PyTorch library call, and the
-   bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s f32);
+   features and in f32: max error against a stated tolerance; median times
+   (CUDA events around the call) of kernel, twin and one PyTorch library
+   call, and for kernel and library call also their device time (after a
+   spin that covers the host's launches) and the host's enqueue time; the
+   bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s f32); A and C
+   also with the L2 flushed before each run, A's live-point share and points
+   per target row, and C's window gather alone (TPU kernels 3 and 4);
 3. the main path: the cars preset at full width (bf16 compute) answers 3
    requests of batch 8 synthetic frames (16384 points, seeded) through
    ``forward_batch_fn`` + ``decode_batch``; launch counts of kernels A and C
@@ -48,8 +52,11 @@ from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_po
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock, to size the pre-run spin
+FLUSH_BYTES = 128 * 2**20  # written between cold runs: over twice the 50 MB L2
 BATCH, REQUESTS, N_POINTS = 8, 3, 16384
 REPS = 20
+HOST_BURST = 20  # calls per round of host_us: under 200 launches, far from a full queue
 
 
 class SmokeFailure(RuntimeError):
@@ -61,21 +68,79 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def median_ms(fn, reps: int = REPS, warmup: int = 3, spin: bool = False,
+              flush: torch.Tensor | None = None) -> float:
+    """Median time of ``fn`` over ``reps`` runs, CUDA events recorded just
+    before and just after the call.
+
+    By default the events time the call as its caller sees it on an idle
+    card: where the host's enqueue outlasts the device's work, that is the
+    host's time. With ``spin``, the stream first spins
+    (``torch.cuda._sleep``) for three times the host's enqueue time, so the
+    start event fires only once the whole run is queued and the events time
+    the device's work alone (a function that synchronises inside still
+    stalls). With ``flush``, the buffer is overwritten before each run so
+    the inputs come from device memory, not from the L2 (L2-cold)."""
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cycles = int(3 * (time.perf_counter() - t0) * SM_CYCLES_PER_S) if spin else 0
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if cycles:
+            torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_us(fn, rounds: int = 10, burst: int = HOST_BURST, warmup: int = 3) -> float:
+    """Host time of one call of ``fn`` in µs: its Python, its ctypes calls
+    and its enqueues. Each round times ``burst`` calls back to back, the
+    host running ahead of the card as it does in a request, and divides by
+    ``burst``; the median over rounds is returned. In a request that keeps
+    the card waiting on the host, this is what the call costs the request.
+    One call timed alone spreads by 2x on a shared host; a burst averages
+    that out."""
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(burst):
+            fn()
+        times.append((time.perf_counter() - t0) / burst)
+    torch.cuda.synchronize()
+    return 1e6 * float(np.median(times))
+
+
+def timings(fn, flush: torch.Tensor | None = None) -> dict:
+    """``fn`` timed as a caller sees it (``ms``), as device work
+    (``device_ms``), L2-cold device work (``cold_ms``, with ``flush``) and
+    host enqueue (``host_us``)."""
+
+    out = {"ms": median_ms(fn), "device_ms": median_ms(fn, spin=True), "host_us": host_us(fn)}
+    if flush is not None:
+        out["cold_ms"] = median_ms(fn, spin=True, flush=flush)
+    return out
+
+
+def timing_text(t: dict) -> str:
+    cold = f", {t['cold_ms']:.4f} L2-cold device" if "cold_ms" in t else ""
+    return (f"{t['ms']:.4f} ms call, {t['device_ms']:.4f} device{cold}, "
+            f"host enqueue {t['host_us']:.1f} us")
 
 
 def add_bound(res: dict, n_bytes: float, flops: float) -> float:
@@ -90,8 +155,20 @@ def add_bound(res: dict, n_bytes: float, flops: float) -> float:
 
 
 def new_result() -> dict:
-    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    return {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "cold_ms": 0.0, "host_us": 0.0,
+            "plain_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
+            "library_host_us": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+
+
+def add_times(res: dict, kernel: dict, plain: float, library: dict) -> None:
+    """Accumulate one call's times into ``res``."""
+
+    for key, value in kernel.items():
+        res[key] += value
+    res["plain_ms"] += plain
+    res["library_ms"] += library["ms"]
+    res["library_device_ms"] += library["device_ms"]
+    res["library_host_us"] += library["host_us"]
 
 
 def nbytes(*ts) -> int:
@@ -219,13 +296,51 @@ def compare(got, want, tol_rel: float, what: str):
 # ------------------------------------------------------------ kernel checks
 
 
-def kernel_a_phase(calls):
+def device_split(fn, reps: int = 10) -> str:
+    """Device time per call of each kernel (and memset) that ``fn``
+    launches, from torch.profiler over ``reps`` calls."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = [
+        (e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:48],
+         e.self_device_time_total / reps)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    if not parts:
+        return "torch.profiler recorded no device time: not measured"
+    return "; ".join(f"{name} {us:.2f} us" for name, us in parts)
+
+
+def patch_pool_stats(rows, vals, t: int) -> str:
+    """What kernel A's gather sees: the share of points with a non-zero
+    weight, and the points per non-empty target row (ids in [0, B*T))."""
+
+    b, p = rows.shape
+    ids = (rows.long() + torch.arange(b, device=rows.device)[:, None] * t).reshape(-1)
+    live = (vals != 0).any(-1).reshape(-1)
+    counts = torch.bincount(ids[live & (ids >= 0) & (ids < b * t)], minlength=b * t)
+    filled = counts[counts > 0].float()
+    return (f"live points {int(live.sum())} of {b * p} ({live.float().mean().item():.4f}); "
+            f"non-empty rows {filled.numel()} of {b * t}; points per non-empty row: mean "
+            f"{filled.mean().item():.3f}, max {int(filled.max().item()) if filled.numel() else 0}")
+
+
+def kernel_a_phase(calls, flush):
     """Kernel A at the two recorded main-path calls (BEV<-FV, FV<-BEV)."""
 
     res = new_result()
     for args in calls:
         src, rows, cols, vals, t = args[:5]
         b, hs, ws, c = src.shape
+        print(f"  A {tuple(src.shape)}->T={t}: {patch_pool_stats(rows, vals, t)}")
         for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
             x = src.to(dtype)
             got = sparse_pool.sparse_pool_patch_kernel(x, rows, cols, vals, t, True)
@@ -234,7 +349,11 @@ def kernel_a_phase(calls):
             print(f"  A {tuple(src.shape)}->T={t} {str(dtype):15s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
             if dtype == src.dtype:
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-        ms = median_ms(lambda: sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True))
+        def kernel_call():
+            return sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True)
+
+        kern = timings(kernel_call, flush)
+        print(f"  A {tuple(src.shape)} device split per call (L2-warm): {device_split(kernel_call)}")
         plain = median_ms(lambda: sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, t, True))
         # library: cuSPARSE CSR x dense on the same entries, weight sum as an extra column
         p = rows.shape[1]
@@ -252,23 +371,28 @@ def kernel_a_phase(calls):
         lib_pool = torch.where(den > 1e-12, lib_out[:, :c] / den.clamp_min(1e-12), 0.0)
         lib_err = (lib_pool.reshape(b, t, c) - sparse_pool.sparse_pool_patch_kernel(
             src, rows, cols, vals, t, True)).abs().max().item()
-        lib = median_ms(lambda: torch.sparse.mm(csr, dense))
-        touched = torch.unique(cols.long() + soff).numel()
+        lib = timings(lambda: torch.sparse.mm(csr, dense), flush)
+        # source cells the live points' windows need, each once
+        live = (vals != 0).any(-1)
+        touched = torch.unique((cols.long() + soff)[live]).numel()
         need = touched * c * src.element_size() + nbytes(rows, cols, vals) + b * t * c * 4
-        bnd = add_bound(res, need, b * p * (8 * c + 4))
-        print(f"  A {tuple(src.shape)}: kernel {ms:.4f} ms, plain {plain:.4f}, "
-              f"torch.sparse.mm(CSR) {lib:.4f} (max diff {lib_err:.2e}), bound {bnd:.4f} "
-              f"({need / 1e6:.2f} MB, {touched} distinct source cells)")
-        res["ms"] += ms
-        res["plain_ms"] += plain
-        res["library_ms"] += lib
+        bnd = add_bound(res, need, int(live.sum()) * (8 * c + 4))
+        print(f"  A {tuple(src.shape)}: kernel {timing_text(kern)}; plain {plain:.4f} ms call; "
+              f"torch.sparse.mm(CSR) {timing_text(lib)} (max diff {lib_err:.2e}); bound "
+              f"{bnd:.4f} ({need / 1e6:.2f} MB, {touched} distinct source cells)")
+        add_times(res, kern, plain, lib)
     return res
 
 
-def kernel_c_phase(calls):
-    """Kernel C at the two recorded main-path calls (BEV, image)."""
+def kernel_c_phase(calls, flush):
+    """Kernel C at the two recorded main-path calls (BEV, image). Also the
+    window gather alone (rows 3 and 4 of PERF.md's table: the TPU probes
+    ``make_window_slice_kernel`` and ``make_rowslab_kernel``, carried by C's
+    window load), timed as the one index gather of ``crop_and_resize_group_plain``.
+    Returns the summed result and one record per call of the gather alone."""
 
     res = new_result()
+    windows = []
     for args in calls:
         img, boxes, crop_hw, patch = args[:4]
         b, h, w, c = img.shape
@@ -286,7 +410,10 @@ def kernel_c_phase(calls):
         p_err = (crop_resize.crop_and_resize_group_plain(img, boxes, crop_hw, patch).float()
                  - f32_truth).abs().max().item()
         print(f"  C {tuple(img.shape)}: vs f32 evaluation of the same bf16 inputs: kernel {k_err:.3e}, twin {p_err:.3e}")
-        ms = median_ms(lambda: crop_resize.crop_and_resize_group_kernel(img, boxes, crop_hw, patch))
+        def kernel_call():
+            return crop_resize.crop_and_resize_group_kernel(img, boxes, crop_hw, patch)
+
+        kern = timings(kernel_call, flush)
         plain = median_ms(lambda: crop_resize.crop_and_resize_group_plain(img, boxes, crop_hw, patch))
         # library: grid_sample (bilinear, align_corners) at the window-clamped coords
         ys, xs, y0, x0 = crop_resize._group_starts(boxes, h, w, crop_hw, patch)
@@ -307,7 +434,7 @@ def kernel_c_phase(calls):
 
         lib_out = lib_call().permute(0, 2, 3, 1).reshape(b, pu, v, ch, cw, c)
         lib_err = (lib_out - f32_truth).abs().max().item()
-        lib = median_ms(lib_call)
+        lib = timings(lib_call, flush)
         py_idx = torch.arange(py, device=img.device)
         px_idx = torch.arange(px, device=img.device)
         pix = ((torch.arange(b, device=img.device)[:, None, None, None] * h + y0[..., None, None]
@@ -316,12 +443,21 @@ def kernel_c_phase(calls):
         n_out = b * pu * v * ch * cw * c
         need = touched * c * img.element_size() + nbytes(boxes) + n_out * img.element_size()
         bnd = add_bound(res, need, 8 * n_out)
-        print(f"  C {tuple(img.shape)}: kernel {ms:.4f} ms, plain {plain:.4f}, grid_sample(f32) "
-              f"{lib:.4f} (max diff to f32 evaluation {lib_err:.2e}), bound {bnd:.4f} ({need / 1e6:.2f} MB)")
-        res["ms"] += ms
-        res["plain_ms"] += plain
-        res["library_ms"] += lib
-    return res
+        print(f"  C {tuple(img.shape)}: kernel {timing_text(kern)}; plain {plain:.4f} ms call; "
+              f"grid_sample(f32) {timing_text(lib)} (max diff to f32 evaluation {lib_err:.2e}); "
+              f"bound {bnd:.4f} ({need / 1e6:.2f} MB)")
+        # the window gather alone: the twin's index gather (ops/crop_resize.py:107-108)
+        flat, lin = img.reshape(b * h * w, c), pix.reshape(-1)
+        gather_ms = median_ms(lambda: flat[lin])
+        win_bytes = touched * c * img.element_size() + lin.numel() * c * img.element_size()
+        win_bound = 1e3 * win_bytes / HBM_BYTES_PER_S
+        windows.append({"view": list(img.shape), "patch": patch, "library_ms": gather_ms,
+                        "bound_ms": win_bound, "bytes": win_bytes})
+        print(f"  C {tuple(img.shape)} window gather alone: torch index gather {gather_ms:.4f} ms "
+              f"L2-warm, bound {win_bound:.4f} ({win_bytes / 1e6:.3f} MB: {touched} distinct "
+              f"pixels read, {lin.numel()} window pixels written)")
+        add_times(res, kern, plain, lib)
+    return res, windows
 
 
 def ell_timing(res, src, idx, w, label):
@@ -336,23 +472,21 @@ def ell_timing(res, src, idx, w, label):
             res["max_abs_err"] = max(res["max_abs_err"], err)
     s, c = src.shape
     t, k = idx.shape
-    ms = median_ms(lambda: ell_sparse_pool.sparse_pool_ell_kernel(src, idx, w))
+    kern = timings(lambda: ell_sparse_pool.sparse_pool_ell_kernel(src, idx, w))
     plain = median_ms(lambda: ell_sparse_pool.sparse_pool_ell(src, idx, w))
     csr = torch.sparse_coo_tensor(
         torch.stack([torch.arange(t, device=src.device).repeat_interleave(k), idx.long().reshape(-1)]),
         w.reshape(-1), (t, s),
     ).coalesce().to_sparse_csr()
     dense = src.float()
-    lib = median_ms(lambda: torch.sparse.mm(csr, dense))
+    lib = timings(lambda: torch.sparse.mm(csr, dense))
     live = w.reshape(-1) != 0
     touched = torch.unique(idx.reshape(-1)[live]).numel()
     need = touched * c * src.element_size() + nbytes(idx, w) + t * c * src.element_size()
     bnd = add_bound(res, need, 2 * int(live.sum()) * c)
-    print(f"  B {label}: kernel {ms:.4f} ms, plain {plain:.4f}, torch.sparse.mm(CSR) {lib:.4f}, "
-          f"bound {bnd:.4f} ({need / 1e6:.2f} MB)")
-    res["ms"] += ms
-    res["plain_ms"] += plain
-    res["library_ms"] += lib
+    print(f"  B {label}: kernel {timing_text(kern)}; plain {plain:.4f} ms call; "
+          f"torch.sparse.mm(CSR) {timing_text(lib)}; bound {bnd:.4f} ({need / 1e6:.2f} MB)")
+    add_times(res, kern, plain, lib)
     return res
 
 
@@ -458,9 +592,14 @@ def main(device: str = "cuda") -> int:
         run_request(model, requests[0][1], anchors, cfg, ext)
     torch.cuda.synchronize()
     check(len(a_calls) == 2 and len(c_calls) == 2, "warm-up did not reach kernels A and C twice")
-    print("[kernels vs plain] (times: median of 20, CUDA events, inputs L2-warm)")
-    res_a = kernel_a_phase(a_calls)
-    res_c = kernel_c_phase(c_calls)
+    print("[kernels vs plain] (medians of 20, L2-warm unless marked L2-cold: a 128 MB write "
+          "first; 'call': CUDA events around the call, as the caller sees it; 'device': the "
+          f"same after a spin that covers the host's launches; 'host enqueue': host time per "
+          f"call over {HOST_BURST} calls back to back, median of 10 such rounds)")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    res_a = kernel_a_phase(a_calls, flush)
+    res_c, windows = kernel_c_phase(c_calls, flush)
+    del flush
     frame0 = requests[0][0][0]
     m_bev, m_fv = ell_tables(frame0, cfg, ext)
     src_fv = a_calls[0][0][0].reshape(-1, a_calls[0][0].shape[-1])  # FV feats feeding BEV cells
@@ -543,12 +682,23 @@ def main(device: str = "cuda") -> int:
          "tools/probe_pallas_roi.py:121", launches_c, res_c),
     ]
     print("[ell probe shapes] " + json.dumps({"replaces": "tools/probe_pallas_shpl.py:66", **probe}))
+    print("[window gather, rows 3-4] " + json.dumps({
+        "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
+        "carried_by": "group_crop", "calls": windows}))
+    print("[L2-cold] " + json.dumps({"sparse_pool_patch_ms": res_a["cold_ms"],
+                                     "group_crop_ms": res_c["cold_ms"]}))
+    # ms, plain_ms and library_ms: as the caller sees a call; device_ms,
+    # cold_ms (A and C) and library_device_ms: device work; host_us and
+    # library_host_us: host enqueue. Each sums the kernel's two calls.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"],
          "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+         **({"cold_ms": r["cold_ms"]} if name != "ell_sparse_pool" else {}),
+         "host_us": r["host_us"], "library_device_ms": r["library_device_ms"],
+         "library_host_us": r["library_host_us"]}
         for name, src, rep, n, r in entries
     ]}))
     print(smi)

@@ -7,115 +7,484 @@
 //
 //   g[c]  = sum_k vals[b,p,k] * src[b, window(cols[b,p,0])_k, c]   (f32)
 //   acc[b*T + rows[b,p], c] += g[c]           c < C
-//   acc[b*T + rows[b,p], C] += sum_k vals[b,p,k]   (with the denominator)
+//   den[b*T + rows[b,p]]    += sum_k vals[b,p,k]   (with the denominator)
 //
-// then out = acc[:, :C] / den where den > 1e-12, else 0.
+// then out = acc / den where den > 1e-12, else 0 (without the denominator,
+// out = acc).
 //
-// The window is the 2x2 block at (cols[...,0] / Ws, cols[...,0] % Ws) with
-// the start clamped so the block fits (XLA gather CLIP mode); a source dim of
-// 1 duplicates its single row/column. Rows index the batch-flattened
-// accumulator (b*T + row); ids outside [0, B*T) are dropped, as the
-// reference's segment_sum over the flattened batch drops them.
+// The window is the 2x2 block at (cols[...,0] floor-div Ws, cols[...,0]
+// floor-mod Ws) with the start clamped so the block fits (XLA gather CLIP
+// mode); a source dim of 1 duplicates its single row/column. Floor, as the
+// reference's `//` and `%`, also for a negative index (C's `/` and `%`
+// truncate and would take another window there). Rows index the
+// batch-flattened output (b*T + row); ids outside [0, B*T) are dropped, as
+// the reference's segment_sum over the flattened batch drops them. A point
+// whose four weights are all 0 (padding, or outside the extents or canvas)
+// adds exactly +0.0 to its row for finite sources and is skipped.
 //
-// Bound: bytes. Each point reads its 4 taps' 4*C source values, 4 weights,
-// 4 indices and its row, and does ~8*C flops; the f32 accumulator scatter is
-// the largest stream. Design: one warp per point, lanes over channels, so
-// each tap is one coalesced C-wide row read and the scatter is C coalesced
-// f32 atomics. The sum order of the atomics varies run to run (tolerance:
-// f32 rounding of a sum of <= tens of entries per target cell).
+// Bound on an H100: bytes. At the main path's shapes (B = 8, 16384 points a
+// frame, C = 64, bf16 source) a call must write the 18 MB f32 output and
+// read 4-8 MB of source rows and 4.5 MB of point tables: 7-8 us at 3.35 TB/s.
+// Beyond that, each of the ~90K live points reads its 4 taps' rows, ~46 MB
+// served from L2, which keeps the gather above ~9 us. The first version
+// scattered point-major: 64 f32 atomicAdds per point into an 18.3 MB
+// [B*T, C+1] accumulator that had to be zeroed first and read again by a
+// dividing pass, some 55 MB of traffic beside 8.4M atomics.
+//
+// Design: a target-major (CSR) gather with no accumulator in device memory
+// and no atomics on features there. Besides the L2 traffic, what holds it
+// back is the longest chain of dependent loads: the points are very unevenly
+// spread (at the main path's inputs one BEV target row has 493 and four in
+// five rows have none), so the gather splits the work by points, never by
+// rows.
+// (1) count: one thread per live point adds one to its row's int32 count
+//     ([B*T], 282 KB to zero) and keeps the count it saw as its rank.
+// (2) scan: one block per 8192 counts writes their exclusive prefix; the last
+//     block to finish scans the blocks' totals (one block scanning all the
+//     counts is held to one SM's bandwidth: 14-16 us on an H100).
+// (3) place: each live point writes its row, its window's first pixel and
+//     its four weights to slot offs[row] + rank: the slots hold the rows in
+//     order, each row's points contiguous. A warp per 32 target rows writes
+//     the empty rows' zeros.
+// (4) gather: one block per 128 consecutive slots, a thread per slot. A block
+//     scan numbers the runs of equal rows. Sub-groups of 8 lanes each walk 8
+//     slots, a lane loading 8 channels of each tap (16 bytes of bf16; where C
+//     is no multiple of 8 or a tensor is not 16-byte aligned, 32 lanes walk
+//     32 slots, one channel a lane) and
+//     summing 4 taps x weight in f32 registers with the weight sum beside
+//     them, and add each run into the block's run buffer in shared memory
+//     (a plain store, or a shared atomic where a run spans sub-groups). A
+//     row lying wholly in the block is written out once, divided where the
+//     weight sum exceeds 1e-12. The block's first and last rows, which may
+//     go on in the blocks beside it, go to a carry buffer instead; the last
+//     block of such a row to finish (a ticket per row, after a fence) adds
+//     its blocks' carries in block order and writes it.
+// Slots are placed by atomics, and runs meet by shared atomics, so the order
+// of the sum within a row is not fixed: it varies from run to run
+// (tolerance: f32 rounding of a sum of <= hundreds of terms).
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void patch_pool_scatter(const T* __restrict__ src, int B, int Hs, int Ws,
-                                   int C, const int* __restrict__ rows,
-                                   const int* __restrict__ cols,
-                                   const float* __restrict__ vals, int P, int Tn,
-                                   int acc_c, float* __restrict__ acc) {
-  const long long warp = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long long)B * P) return;
-  const int b = (int)(warp / P);
-  const long long row = (long long)b * Tn + rows[warp];
-  if (row < 0 || row >= (long long)B * Tn) return;
+constexpr int kThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kScanPer = 8;  // counts per thread: two int4
+constexpr int kScanTile = kScanThreads * kScanPer;
+constexpr int kSlots = 128;  // slots per gather block, one per thread
+constexpr unsigned kFull = 0xffffffffu;
 
-  const int c00 = cols[warp * 4];
-  const int sh = Hs > 1 ? 2 : 1;
-  const int sw = Ws > 1 ? 2 : 1;
-  const int v0 = min(max(c00 / Ws, 0), Hs - sh);
-  const int u0 = min(max(c00 % Ws, 0), Ws - sw);
-  const int v1 = v0 + sh - 1;
-  const int u1 = u0 + sw - 1;
-  const float w0 = vals[warp * 4 + 0];
-  const float w1 = vals[warp * 4 + 1];
-  const float w2 = vals[warp * 4 + 2];
-  const float w3 = vals[warp * 4 + 3];
-
-  const T* base = src + (long long)b * Hs * Ws * C;
-  const T* p00 = base + ((long long)v0 * Ws + u0) * C;
-  const T* p01 = base + ((long long)v0 * Ws + u1) * C;
-  const T* p10 = base + ((long long)v1 * Ws + u0) * C;
-  const T* p11 = base + ((long long)v1 * Ws + u1) * C;
-  float* dst = acc + row * acc_c;
-  for (int c = lane; c < C; c += 32) {
-    float g = spt::to_f32(p00[c]) * w0;
-    g = g + spt::to_f32(p01[c]) * w1;
-    g = g + spt::to_f32(p10[c]) * w2;
-    g = g + spt::to_f32(p11[c]) * w3;
-    atomicAdd(dst + c, g);
-  }
-  if (acc_c > C && lane == 0) atomicAdd(dst + C, ((w0 + w1) + w2) + w3);
+__host__ __device__ __forceinline__ long long round_up(long long n, long long m) {
+  return (n + m - 1) / m * m;
 }
 
-__global__ void patch_pool_divide(const float* __restrict__ acc, long long n_rows, int C,
-                                  float* __restrict__ out) {
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// The scratch buffer, carved in this order; every part starts 16-byte aligned.
+struct Scratch {
+  int* hist;        // [n_pad] counts per row; zeroed with `done` and `arrive`
+  int* done;        // [4] scan blocks finished, then the live-point total
+  int* arrive;      // [round4(n_blocks)] gather blocks done with a spanning row
+  int* local;       // [n_pad] exclusive prefix within each 8192 rows
+  int* tile_sum;    // [round4(n_tiles)] counts per 8192 rows
+  int* tile_base;   // [round4(n_tiles)] their exclusive prefix
+  float4* slot_w;   // [n_slots] weights, in slot order
+  int* rank;        // [n_slots] a point's place within its row, -1 if skipped
+  int* slot_pix;    // [n_slots] window's first pixel (flat over B*Hs*Ws)
+  int* slot_row;    // [n_slots] target row (flat over B*T)
+  float* carry;     // [n_blocks, 2, C + 1] a gather block's first and last rows
+
+  struct Sizes {
+    long long n_pad, n_tiles, n_slots, n_blocks;
+  };
+  __host__ static Sizes sizes(long long n_rows, long long n_pts) {
+    const long long n_pad = round_up(n_rows, kScanTile);
+    const long long n_blocks = (n_pts + kSlots - 1) / kSlots;
+    return {n_pad, round_up(n_pad / kScanTile, 4), n_blocks * kSlots + 4, n_blocks};
+  }
+  __host__ static long long ints(long long n_rows, long long n_pts, int C) {
+    const Sizes z = sizes(n_rows, n_pts);
+    return 2 * z.n_pad + 4 + round_up(z.n_blocks, 4) + 2 * z.n_tiles + 7 * z.n_slots +
+           round_up(z.n_blocks * 2 * (C + 1), 4);
+  }
+  __host__ Scratch(int* base, long long n_rows, long long n_pts) {
+    const Sizes z = sizes(n_rows, n_pts);
+    hist = base;
+    done = hist + z.n_pad;
+    arrive = done + 4;
+    local = arrive + round_up(z.n_blocks, 4);
+    tile_sum = local + z.n_pad;
+    tile_base = tile_sum + z.n_tiles;
+    slot_w = reinterpret_cast<float4*>(tile_base + z.n_tiles);
+    rank = reinterpret_cast<int*>(slot_w + z.n_slots);
+    slot_pix = rank + z.n_slots;
+    slot_row = slot_pix + z.n_slots;
+    carry = reinterpret_cast<float*>(slot_row + z.n_slots);
+  }
+};
+
+__device__ __forceinline__ long long slot_of(const Scratch& s, long long row) {
+  return (long long)s.tile_base[row / kScanTile] + s.local[row];
+}
+
+__device__ __forceinline__ float finish(float acc, float den, int with_den) {
+  return with_den ? (den > 1e-12f ? acc / fmaxf(den, 1e-12f) : 0.0f) : acc;
+}
+
+__global__ void patch_pool_count(const int* __restrict__ rows, const float* __restrict__ vals,
+                                 int B, int P, int Tn, Scratch s) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n_rows * C) return;
-  const long long r = i / C;
-  const int c = (int)(i % C);
-  const float den = acc[r * (C + 1) + C];
-  out[i] = den > 1e-12f ? acc[r * (C + 1) + c] / fmaxf(den, 1e-12f) : 0.0f;
+  if (i >= (long long)B * P) return;
+  const long long id = (i / P) * Tn + rows[i];
+  const float* w = vals + i * 4;
+  const bool live = (w[0] != 0.0f) | (w[1] != 0.0f) | (w[2] != 0.0f) | (w[3] != 0.0f);
+  s.rank[i] = (live && id >= 0 && id < (long long)B * Tn) ? atomicAdd(s.hist + id, 1) : -1;
+}
+
+// Inclusive scan of one int per thread over a block of kWarps warps; *total
+// gets the sum. Every thread of the block calls it (it holds two barriers).
+template <int kWarps>
+__device__ __forceinline__ int block_inclusive_scan(int v, int* total) {
+  __shared__ int warp_tot[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    const int t = warp_tot[k];
+    before += k < warp ? t : 0;
+    sum += t;
+  }
+  *total = sum;
+  __syncthreads();  // warp_tot is free for the next call
+  return before + incl;
+}
+
+// Block t scans counts [t * kScanTile, (t + 1) * kScanTile) into s.local;
+// the last block to finish scans the blocks' totals into s.tile_base and
+// writes the live-point total to s.done[1].
+__global__ void __launch_bounds__(kScanThreads) patch_pool_scan(Scratch s, int n_tiles) {
+  constexpr int kVec = kScanPer / 4;
+  const long long at = ((long long)blockIdx.x * kScanThreads + threadIdx.x) * kVec;
+  const int4* hist = reinterpret_cast<const int4*>(s.hist) + at;
+  int4* local = reinterpret_cast<int4*>(s.local) + at;
+  int4 cur[kVec];
+  int tot = 0;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    cur[k] = hist[k];
+    tot += cur[k].x + cur[k].y + cur[k].z + cur[k].w;
+  }
+  int block_total;
+  int run = block_inclusive_scan<kScanThreads / 32>(tot, &block_total) - tot;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    int4 e;
+    e.x = run;
+    e.y = e.x + cur[k].x;
+    e.z = e.y + cur[k].y;
+    e.w = e.z + cur[k].z;
+    run = e.w + cur[k].w;
+    local[k] = e;
+  }
+  __shared__ int is_last;
+  if (threadIdx.x == 0) {
+    s.tile_sum[blockIdx.x] = block_total;
+    __threadfence();
+    is_last = atomicAdd(s.done, 1) == n_tiles - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  int carry = 0;
+  for (int base = 0; base < n_tiles; base += kScanThreads) {
+    const int i = base + threadIdx.x;
+    const int v = i < n_tiles ? __ldcg(s.tile_sum + i) : 0;
+    int total;
+    const int e = block_inclusive_scan<kScanThreads / 32>(v, &total) - v;
+    if (i < n_tiles) s.tile_base[i] = carry + e;
+    carry += total;
+  }
+  if (threadIdx.x == 0) s.done[1] = carry;
+}
+
+// Also writes the empty target rows' zeros: a warp per 32 rows.
+__global__ void patch_pool_place(const int* __restrict__ rows, const int* __restrict__ cols,
+                                 const float* __restrict__ vals, int B, int P, int Hs, int Ws,
+                                 int Tn, int C, Scratch s, float* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long n_rows = (long long)B * Tn;
+  const long long row0 = (i >> 5) * 32;
+  if (row0 < n_rows) {
+    const long long mine = row0 + (threadIdx.x & 31);
+    const unsigned empty = __ballot_sync(kFull, mine < n_rows && s.hist[mine] == 0);
+    float* dst = out + row0 * C;
+    if (C % 4 == 0 && spt::aligned(out, 16)) {
+      const int c4 = C / 4;
+      for (int e = threadIdx.x & 31; e < 32 * c4; e += 32)
+        if (empty >> (e / c4) & 1) reinterpret_cast<float4*>(dst)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (int e = threadIdx.x & 31; e < 32 * C; e += 32)
+        if (empty >> (e / C) & 1) dst[e] = 0.0f;
+    }
+  }
+  if (i >= (long long)B * P) return;
+  const int r = s.rank[i];
+  if (r < 0) return;
+  const int b = (int)(i / P);
+  const int c00 = cols[i * 4];
+  const int v = floor_div(c00, Ws);
+  const int v0 = min(max(v, 0), Hs - (Hs > 1 ? 2 : 1));
+  const int u0 = min(max(c00 - v * Ws, 0), Ws - (Ws > 1 ? 2 : 1));
+  const long long id = (long long)b * Tn + rows[i];
+  const long long at = slot_of(s, id) + r;
+  s.slot_row[at] = (int)id;
+  s.slot_pix[at] = (b * Hs + v0) * Ws + u0;
+  s.slot_w[at] = make_float4(vals[i * 4], vals[i * 4 + 1], vals[i * 4 + 2], vals[i * 4 + 3]);
+}
+
+// One block per kSlots slots; sub-groups of S lanes walk S slots each, W
+// channels a lane, S * W channels a pass. Six blocks fit an SM (<= 80
+// registers, < 37 KB of shared memory), so the main path's ~700 live blocks
+// run in one wave on an H100's 132 SMs.
+template <typename T, int W, int S>
+__global__ void __launch_bounds__(kSlots, 6)
+patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, int with_den,
+                  float* __restrict__ out) {
+  constexpr int kPass = S * W;
+  constexpr int kVec = W > 1 ? 4 : 1;  // channels a thread writes (C % 8 == 0 then)
+  __shared__ float runbuf[kSlots][kPass + 1];  // + the weight sum
+  __shared__ int slot_run[kSlots];
+  __shared__ int run_row[kSlots];
+  __shared__ int run_lo[kSlots + 1];  // a run's first slot; run_lo[n_runs] = n_here
+  __shared__ int pix_s[kSlots];
+  __shared__ float4 w_s[kSlots];
+  __shared__ int warp_last_row[kSlots / 32];
+  __shared__ int edge_s[2];  // the rows of the slots just before and after the block
+  __shared__ long long span_s[2][2];  // first and last gather block of the first, last row
+  __shared__ int last_s[2];  // this block combines the first, last row
+
+  const int t = threadIdx.x;
+  const long long k0 = blockIdx.x * (long long)kSlots;
+  // the slot arrays hold n_blocks * kSlots + 4 entries, so these loads stay
+  // inside them; entries past the live total are masked below
+  const int n_live = s.done[1];
+  const int row = s.slot_row[k0 + t];
+  const int pix = s.slot_pix[k0 + t];
+  const float4 w = s.slot_w[k0 + t];
+  if (t < 2) edge_s[t] = t == 0 ? (k0 > 0 ? s.slot_row[k0 - 1] : -1) : s.slot_row[k0 + kSlots];
+  if (k0 >= n_live) return;  // the grid covers every point, not only the live ones
+  const int n_here = (int)min((long long)kSlots, n_live - k0);
+  pix_s[t] = pix;
+  w_s[t] = w;
+  if ((t & 31) == 31) warp_last_row[t >> 5] = row;
+  __syncthreads();
+  const int up = __shfl_up_sync(kFull, row, 1);
+  const int prev = (t & 31) ? up : (t > 0 ? warp_last_row[(t >> 5) - 1] : -1);
+  const int starts = t < n_here && (t == 0 || row != prev);
+  int n_runs;
+  const int run = block_inclusive_scan<kSlots / 32>(starts, &n_runs) - 1;
+  slot_run[t] = run;
+  if (starts) {
+    run_row[run] = row;
+    run_lo[run] = t;
+  }
+  if (t == 0) run_lo[n_runs] = n_here;
+  __syncthreads();
+  const int first_row = run_row[0];
+  const int last_row = run_row[n_runs - 1];
+  long long span[2] = {0, 0};  // thread 0 (1): gather blocks of the first (last) row
+  if (t < 2) {
+    const int r = t == 0 ? first_row : last_row;
+    const long long first = slot_of(s, r);
+    span[0] = first / kSlots;
+    span[1] = (first + s.hist[r] - 1) / kSlots;
+  }
+  const bool open_before = edge_s[0] == first_row && k0 > 0;
+  const bool open_after = k0 + n_here < n_live && edge_s[1] == last_row;
+  const int right = Ws > 1 ? 1 : 0;
+  const int down = Hs > 1 ? Ws : 0;
+  const int sub_lo = (t / S) * S;
+  const int sub_hi = min(sub_lo + S, n_here);
+  const int ls = t % S;
+  float* carry = s.carry + blockIdx.x * 2LL * (C + 1);
+
+  for (int c0 = 0; c0 < C; c0 += kPass) {
+    for (int e = t; e < n_runs * (kPass + 1); e += kSlots) (&runbuf[0][0])[e] = 0.0f;
+    __syncthreads();
+    const int c = c0 + ls * W;
+    float acc[W] = {};
+    float den = 0.0f;
+    int cur = -1;
+    auto flush = [&]() {
+      if (cur < 0) return;
+      // a run inside this sub-group's slots is its own; others meet by atomics
+      const bool own = run_lo[cur] >= sub_lo && run_lo[cur + 1] <= sub_hi;
+      if (c < C) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          if (own) runbuf[cur][ls * W + j] = acc[j];
+          else atomicAdd(&runbuf[cur][ls * W + j], acc[j]);
+        }
+      }
+      if (ls == 0) {
+        if (own) runbuf[cur][kPass] = den;
+        else atomicAdd(&runbuf[cur][kPass], den);
+      }
+    };
+#pragma unroll 2
+    for (int q = sub_lo; q < sub_hi; ++q) {
+      if (slot_run[q] != cur) {
+        flush();
+        cur = slot_run[q];
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[j] = 0.0f;
+        den = 0.0f;
+      }
+      const float4 x = w_s[q];
+      den = den + (((x.x + x.y) + x.z) + x.w);
+      if (c < C) {
+        float t00[W], t01[W], t10[W], t11[W];
+        const T* p = src + (long long)pix_s[q] * C + c;
+        spt::load_f32<T, W>(p, t00);
+        spt::load_f32<T, W>(p + (long long)right * C, t01);
+        spt::load_f32<T, W>(p + (long long)down * C, t10);
+        spt::load_f32<T, W>(p + (long long)(down + right) * C, t11);
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          float g = t00[j] * x.x;
+          g = g + t01[j] * x.y;
+          g = g + t10[j] * x.z;
+          g = g + t11[j] * x.w;
+          acc[j] = acc[j] + g;
+        }
+      }
+    }
+    flush();
+    __syncthreads();
+    // a thread per kVec channels of a run
+    for (int e = t; e < n_runs * (kPass / kVec); e += kSlots) {
+      const int r = e / (kPass / kVec);
+      const int ch = (e - r * (kPass / kVec)) * kVec;
+      if (c0 + ch >= C) continue;
+      float v[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) v[j] = runbuf[r][ch + j];
+      const float d = runbuf[r][kPass];
+      // a row open towards a neighbour goes to carry [0] (first) or [1] (last)
+      const int side = r == 0 && open_before ? 0 : (r == n_runs - 1 && open_after ? 1 : -1);
+      if (side < 0) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) v[j] = finish(v[j], d, with_den);
+        spt::store_from_f32<float, kVec>(out + (long long)run_row[r] * C + c0 + ch, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) carry[side * (C + 1) + c0 + ch + j] = v[j];
+        if (c0 + ch == 0) carry[side * (C + 1) + C] = d;
+      }
+    }
+    __syncthreads();
+  }
+
+  // a row open towards a neighbour: the last of its blocks to get here adds
+  // the carries (the fence makes this block's carries visible first)
+  __threadfence();
+  __syncthreads();
+  if (t < 2) {
+    const bool open = t == 0 ? open_before : open_after && !(n_runs == 1 && open_before);
+    span_s[t][0] = span[0];
+    span_s[t][1] = span[1];
+    last_s[t] = open && atomicAdd(s.arrive + span[0], 1) == (int)(span[1] - span[0]);
+  }
+  __syncthreads();
+  for (int side = 0; side < 2; ++side) {
+    if (!last_s[side]) continue;
+    const long long k1 = span_s[side][0];
+    const long long k2 = span_s[side][1];
+    const long long stride = C + 1;
+    const float* cb = s.carry;
+    for (int c = t; c < C; c += kSlots) {
+      float v = __ldcg(cb + (2 * k1 + 1) * stride + c);
+      float d = __ldcg(cb + (2 * k1 + 1) * stride + C);
+      for (long long k = k1 + 1; k <= k2; ++k) {
+        v = v + __ldcg(cb + 2 * k * stride + c);
+        d = d + __ldcg(cb + 2 * k * stride + C);
+      }
+      out[(long long)(side == 0 ? first_row : last_row) * C + c] = finish(v, d, with_den);
+    }
+  }
+}
+
+template <typename T, int W, int S>
+cudaError_t gather(const T* src, int Hs, int Ws, int C, const Scratch& s, long long n_blocks,
+                   int with_den, float* out, cudaStream_t stream) {
+  patch_pool_gather<T, W, S><<<(unsigned)n_blocks, kSlots, 0, stream>>>(src, Hs, Ws, C, s,
+                                                                       with_den, out);
+  return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* src, int B, int Hs, int Ws, int C, const int* rows,
-           const int* cols, const float* vals, int P, int Tn, int with_den,
-           float* acc, float* out, cudaStream_t stream) {
+int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, const int* cols,
+           const float* vals, int P, int Tn, int with_den, int* scratch, float* out,
+           cudaStream_t stream) {
+  const T* src = static_cast<const T*>(src_v);
   const long long n_rows = (long long)B * Tn;
-  const int acc_c = with_den ? C + 1 : C;
-  float* target = with_den ? acc : out;
-  cudaError_t err = cudaMemsetAsync(target, 0, sizeof(float) * n_rows * acc_c, stream);
+  const long long n_pts = (long long)B * P;
+  if (n_rows == 0 || C == 0) return 0;
+  const Scratch::Sizes z = Scratch::sizes(n_rows, n_pts);
+  const Scratch s(scratch, n_rows, n_pts);
+
+  if (n_pts == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * n_rows * C, stream);
+  cudaError_t err = cudaMemsetAsync(
+      s.hist, 0, sizeof(int) * (z.n_pad + 4 + round_up(z.n_blocks, 4)), stream);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const long long n_warps = (long long)B * P;
-  if (n_warps > 0) {
-    const long long blocks = (n_warps * 32 + threads - 1) / threads;
-    patch_pool_scatter<T><<<(unsigned)blocks, threads, 0, stream>>>(
-        static_cast<const T*>(src), B, Hs, Ws, C, rows, cols, vals, P, Tn, acc_c, target);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (with_den && n_rows * C > 0) {
-    const long long blocks = (n_rows * C + threads - 1) / threads;
-    patch_pool_divide<<<(unsigned)blocks, threads, 0, stream>>>(acc, n_rows, C, out);
-  }
-  return (int)cudaGetLastError();
+  const long long pt_blocks = (n_pts + kThreads - 1) / kThreads;
+  patch_pool_count<<<(unsigned)pt_blocks, kThreads, 0, stream>>>(rows, vals, B, P, Tn, s);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int n_tiles = (int)(z.n_pad / kScanTile);
+  patch_pool_scan<<<n_tiles, kScanThreads, 0, stream>>>(s, n_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // a thread per point, and a warp per 32 target rows
+  const long long place_blocks = max(pt_blocks, (n_rows + kThreads - 1) / kThreads);
+  patch_pool_place<<<(unsigned)place_blocks, kThreads, 0, stream>>>(rows, cols, vals, B, P, Hs,
+                                                                    Ws, Tn, C, s, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // the vector form also stores 4 channels at once: out must be 16-byte aligned
+  if (C % 8 == 0 && spt::aligned(src, 16) && spt::aligned(out, 16))
+    err = gather<T, 8, 8>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, stream);
+  else
+    err = gather<T, 1, 32>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, stream);
+  return (int)err;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 source, 1 = bfloat16 source. acc: [B*T, C+1] f32
-// scratch (with_den only); out: [B*T, C] f32.
+// int32 scratch the wrapper allocates (16-byte aligned): see Scratch.
+extern "C" long long sparse_pool_patch_scratch_ints(int B, int P, int Tn, int C) {
+  return Scratch::ints((long long)B * Tn, (long long)B * P, C);
+}
+
+// dtype: 0 = float32 source, 1 = bfloat16 source. scratch: the int32 buffer
+// above; out: [B*T, C] f32.
 extern "C" int sparse_pool_patch_launch(const void* src, int dtype, int B, int Hs, int Ws,
                                         int C, const int* rows, const int* cols,
                                         const float* vals, int P, int Tn, int with_den,
-                                        float* acc, float* out, void* stream) {
+                                        int* scratch, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!spt::aligned(scratch, 16)) return (int)cudaErrorMisalignedAddress;
   if (dtype == 0)
-    return launch<float>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, acc, out, s);
+    return launch<float>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch, out, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, acc,
+    return launch<__nv_bfloat16>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch,
                                  out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,6 +35,22 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (argument types, result type) of each C export, set once when its library
+# loads, so a wrapper's call pays no ctypes set-up
+SIGNATURES = {
+    "sparse_pool_patch": {
+        "sparse_pool_patch_scratch_ints": ([_I] * 4, ctypes.c_longlong),
+        "sparse_pool_patch_launch": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+    },
+    "ell_sparse_pool": {
+        "ell_sparse_pool_launch": ([_P, _I, _I, _I, _P, _P, _I, _I, _P, _P], _I),
+    },
+    "group_crop": {
+        "group_crop_launch": ([_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P], _I),
+    },
+}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -110,6 +126,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        for symbol, (argtypes, restype) in SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, restype
         _LIBS[name] = lib
     return lib
 
@@ -122,12 +141,13 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def stream_ptr() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream_ptr(device_index: int) -> int:
+    """The raw handle of the device's current stream. This is the accessor
+    Triton's launcher uses: ``torch.cuda.current_stream()`` builds a Python
+    Stream object on every call, which costs the host more than the ctypes
+    launch it feeds."""
 
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -139,18 +159,20 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def require_cuda(*tensors: torch.Tensor, what: str) -> None:
-    """Every tensor on the current CUDA device and contiguous."""
+def require_cuda(*tensors: torch.Tensor, what: str) -> int:
+    """Every tensor on the current CUDA device and contiguous; returns the
+    device's index."""
 
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{what}: tensor on {t.device}, expected cuda")
-    dev = torch.device("cuda", torch.cuda.current_device())
+    index = torch.cuda.current_device()
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{what}: tensor on {t.device}, expected {dev}")
+        if t.get_device() != index:
+            raise ValueError(f"{what}: tensor on {t.device}, expected cuda:{index}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+    return index
 
 
 def counted(launcher):

@@ -6,7 +6,8 @@ Port of the forwards of ``sparse_pooling_tpu.ops.crop_resize``:
 * ``crop_and_resize_group_einsum_px`` — one window per unit of V grouped
   boxes at the group-centroid start, every variant's ch x cw grid evaluated
   inside it with tent weights. A CUDA tensor launches kernel C
-  (``csrc/group_crop.cu``); a CPU tensor runs ``crop_and_resize_group_plain``,
+  (``csrc/group_crop.cu``, several units per block, one thread per sample
+  holding all C channels); a CPU tensor runs ``crop_and_resize_group_plain``,
   which keeps the reference's casts of the tent weights and of each product
   to the feature dtype.
 * ``crop_and_resize_px_batch`` — exact bilinear sampling at every grid point,
@@ -20,8 +21,6 @@ clipped to the map.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -126,7 +125,7 @@ def crop_and_resize_group_kernel(
     """Kernel C on CUDA tensors -> [B, P, V, ch, cw, C] in the image dtype."""
 
     what = "group_crop"
-    kernels.require_cuda(images, boxes_grouped, what=what)
+    device = kernels.require_cuda(images, boxes_grouped, what=what)
     if boxes_grouped.dtype != torch.float32:
         raise TypeError(f"{what}: boxes must be float32")
     b, h, w, c = images.shape
@@ -134,18 +133,13 @@ def crop_and_resize_group_kernel(
     if bb != b or four != 4:
         raise ValueError(f"{what}: boxes [B, P, V, 4] required, got {tuple(boxes_grouped.shape)}")
     ch, cw = int(crop_hw[0]), int(crop_hw[1])
-    if 4 * min(patch, h) * min(patch, w) * c > 48 * 1024:
-        raise ValueError(f"{what}: window {patch}x{patch}x{c} exceeds 48 KB of shared memory")
     dt = kernels.dtype_code(images, what)
-    out = torch.empty((b, p, v, ch, cw, c), dtype=images.dtype, device=images.device)
     lib = kernels.library("group_crop")
-    fn = lib.group_crop_launch
-    i = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, i, i, i, i, i, ctypes.c_void_p, i, i, i, i, i,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(kernels.ptr(images), dt, b, h, w, c, kernels.ptr(boxes_grouped), p, v, ch, cw,
-            int(patch), kernels.ptr(out), kernels.stream_ptr())
+    out = images.new_empty((b, p, v, ch, cw, c))
+    # refused (invalid argument) where one unit's window and coordinates
+    # exceed 48 KB of shared memory
+    rc = lib.group_crop_launch(images.data_ptr(), dt, b, h, w, c, boxes_grouped.data_ptr(), p, v,
+                               ch, cw, int(patch), out.data_ptr(), kernels.stream_ptr(device))
     kernels.check(lib, rc, what)
     return out
 

@@ -10,8 +10,6 @@ the plain ``ops.sparse_pool.sparse_pool_ell``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from sparse_pooling_tpu_torch import kernels
@@ -27,21 +25,16 @@ def sparse_pool_ell_kernel(
     """Kernel B on CUDA tensors -> [T, C] in the source dtype."""
 
     what = "ell_sparse_pool"
-    kernels.require_cuda(src_feat, ell_src, ell_w, what=what)
+    device = kernels.require_cuda(src_feat, ell_src, ell_w, what=what)
     s, c = src_feat.shape
     t, k = ell_src.shape
     if ell_src.dtype != torch.int32 or ell_w.dtype != torch.float32 or ell_w.shape != (t, k):
         raise TypeError(f"{what}: ell_src int32 [T,K] and ell_w float32 [T,K] required")
     dt = kernels.dtype_code(src_feat, what)
-    out = torch.empty((t, c), dtype=src_feat.dtype, device=src_feat.device)
+    out = src_feat.new_empty((t, c))
     lib = kernels.library("ell_sparse_pool")
-    fn = lib.ell_sparse_pool_launch
-    i = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, i, i, i, ctypes.c_void_p, ctypes.c_void_p, i, i,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(kernels.ptr(src_feat), dt, s, c, kernels.ptr(ell_src), kernels.ptr(ell_w), t, k,
-            kernels.ptr(out), kernels.stream_ptr())
+    rc = lib.ell_sparse_pool_launch(src_feat.data_ptr(), dt, s, c, ell_src.data_ptr(),
+                                    ell_w.data_ptr(), t, k, out.data_ptr(), kernels.stream_ptr(device))
     kernels.check(lib, rc, what)
     return out
 

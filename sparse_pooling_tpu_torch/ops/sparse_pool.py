@@ -7,15 +7,14 @@ Port of the forward of ``sparse_pooling_tpu.ops.sparse_pool``:
   with its f32 bilinear weights and scatter-adds into its target cell; with
   ``divide_by_weight_sum`` the weight sum rides the same scatter as channel
   C+1 and the result is divided by it where it exceeds 1e-12. On a CUDA
-  tensor this launches kernel A (``csrc/sparse_pool_patch.cu``); on a CPU
-  tensor it runs ``sparse_pool_patch_plain``.
+  tensor this launches kernel A (``csrc/sparse_pool_patch.cu``, which sorts
+  the points by target row and gathers each row once instead of scattering
+  per point); on a CPU tensor it runs ``sparse_pool_patch_plain``.
 * ``sparse_pool_ell`` — the plain ELL pool ``out[t] = sum_k w[t,k] *
   src[idx[t,k]]``, twin of kernel B (``ops/ell_sparse_pool.py``).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -89,29 +88,27 @@ def sparse_pool_patch_kernel(
     what = "sparse_pool_patch"
     if accum_dtype != "float32":
         raise NotImplementedError(f"{what}: kernel accumulates in float32 only, got {accum_dtype}")
-    kernels.require_cuda(src_map, rows, cols, vals, what=what)
+    device = kernels.require_cuda(src_map, rows, cols, vals, what=what)
     b, hs, ws, c = src_map.shape
     p = rows.shape[1]
     if rows.dtype != torch.int32 or cols.dtype != torch.int32 or vals.dtype != torch.float32:
         raise TypeError(f"{what}: rows/cols int32 and vals float32 required")
     if rows.shape != (b, p) or cols.shape != (b, p, 4) or vals.shape != (b, p, 4):
         raise ValueError(f"{what}: rows [B,P], cols/vals [B,P,4] required")
+    if b * hs * ws >= 2**31 or b * max(p, num_targets) >= 2**31:
+        raise ValueError(f"{what}: B*Hs*Ws, B*P and B*T must stay below 2**31")
     dt = kernels.dtype_code(src_map, what)
-    out = torch.empty((b, num_targets, c), dtype=torch.float32, device=src_map.device)
-    acc = (
-        torch.empty((b * num_targets, c + 1), dtype=torch.float32, device=src_map.device)
-        if divide_by_weight_sum
-        else out
-    )
     lib = kernels.library("sparse_pool_patch")
-    fn = lib.sparse_pool_patch_launch
-    i = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, i, i, i, i, i, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, i, i, i, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(kernels.ptr(src_map), dt, b, hs, ws, c, kernels.ptr(rows), kernels.ptr(cols),
-            kernels.ptr(vals), p, int(num_targets), int(divide_by_weight_sum),
-            kernels.ptr(acc), kernels.ptr(out), kernels.stream_ptr())
+    # int32 counts, offsets, slots and carries of the CSR gather; new_empty
+    # takes the int32 of rows and the f32 of vals at less host cost than
+    # torch.empty's keywords
+    scratch = rows.new_empty(lib.sparse_pool_patch_scratch_ints(b, p, int(num_targets), c))
+    out = vals.new_empty((b, int(num_targets), c))
+    rc = lib.sparse_pool_patch_launch(
+        src_map.data_ptr(), dt, b, hs, ws, c, rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+        p, int(num_targets), int(divide_by_weight_sum), scratch.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(device),
+    )
     kernels.check(lib, rc, what)
     return out
 
