@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ell-baseline CU]
 
 Needs one CUDA card; exits non-zero without one. Phases (any failure exits
 non-zero):
@@ -12,19 +12,25 @@ non-zero):
    features and in f32: max error against a stated tolerance; median times
    (CUDA events around the call) of kernel, twin and one PyTorch library
    call, and for kernel and library call also their device time (after a
-   spin that covers the host's launches) and the host's enqueue time; the
-   bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s f32); A and C
-   also with the L2 flushed before each run, A's live-point share and points
-   per target row, and C's window gather alone (TPU kernels 3 and 4);
+   spin that covers the host's launches), their device time with the L2
+   flushed before each run, and the host's enqueue time; the bound (bytes
+   over 3.35 TB/s vs operations over 67 TFLOP/s f32); A's live-point share
+   and points per target row, and C's window gather alone (TPU kernels 3
+   and 4); the device time of an empty kernel, the floor of any launch;
+   kernel B at one frame, at the probe's shapes and at batch 8 (request 0's
+   frames, each with its own host ELL tables), with its share of live ELL
+   slots and its tap reads, and with ``--ell-baseline`` the given earlier
+   kernel B source timed on the same work;
 3. the main path: the cars preset at full width (bf16 compute) answers 3
    requests of batch 8 synthetic frames (16384 points, seeded) through
    ``forward_batch_fn`` + ``decode_batch``; launch counts of kernels A and C
    are read around exactly these 3 requests; then where the time goes: the
    stage times of one more request and a torch.profiler split of another;
-4. the ELL path: host ELL tables (K=8) of request 0 frame 0 pool that
-   frame's post-projection mid features through ``sparse_pool_fused``
-   (kernel B), held against the plain ELL pool; the gap to kernel A's exact
-   pool on rows with <= 8 sources is printed for information;
+4. the ELL path: the host ELL tables (K=8) of request 0's 8 frames pool
+   their post-projection mid features through ``sparse_pool_ell_batch``,
+   one launch of kernel B per direction (counted), held against the plain
+   ELL pool; the gap to kernel A's exact pool on rows with <= 8 sources is
+   printed for information;
 5. the narrow parity config on the card against the same model on the CPU
    (f32, TF32 off): the RPN outputs must agree;
 6. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
@@ -53,6 +59,7 @@ from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_po
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock, to size the pre-run spin
+SPIN_MIN_S = 50e-6
 FLUSH_BYTES = 128 * 2**20  # written between cold runs: over twice the 50 MB L2
 BATCH, REQUESTS, N_POINTS = 8, 3, 16384
 REPS = 20
@@ -76,7 +83,8 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3, spin: bool = False,
     By default the events time the call as its caller sees it on an idle
     card: where the host's enqueue outlasts the device's work, that is the
     host's time. With ``spin``, the stream first spins
-    (``torch.cuda._sleep``) for three times the host's enqueue time, so the
+    (``torch.cuda._sleep``) for three times the host's enqueue time (at least
+    50 µs), so the
     start event fires only once the whole run is queued and the events time
     the device's work alone (a function that synchronises inside still
     stalls). With ``flush``, the buffer is overwritten before each run so
@@ -87,7 +95,9 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3, spin: bool = False,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
-    cycles = int(3 * (time.perf_counter() - t0) * SM_CYCLES_PER_S) if spin else 0
+    # at least SPIN_MIN_S: for a call of a few µs the events' own enqueue
+    # outlasts three times the call
+    cycles = int(max(3 * (time.perf_counter() - t0), SPIN_MIN_S) * SM_CYCLES_PER_S) if spin else 0
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -164,7 +174,7 @@ def add_times(res: dict, kernel: dict, plain: float, library: dict) -> None:
     """Accumulate one call's times into ``res``."""
 
     for key, value in kernel.items():
-        res[key] += value
+        res[key] = res.get(key, 0.0) + value
     res["plain_ms"] += plain
     res["library_ms"] += library["ms"]
     res["library_device_ms"] += library["device_ms"]
@@ -296,9 +306,10 @@ def compare(got, want, tol_rel: float, what: str):
 # ------------------------------------------------------------ kernel checks
 
 
-def device_split(fn, reps: int = 10) -> str:
-    """Device time per call of each kernel (and memset) that ``fn``
-    launches, from torch.profiler over ``reps`` calls."""
+def kernel_parts(fn, reps: int = 10) -> list:
+    """(name, µs) per call of each kernel (and memset) that ``fn`` launches,
+    from torch.profiler over ``reps`` calls: the kernels' own execution,
+    without the launch latency that CUDA events around a call include."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,12 +319,16 @@ def device_split(fn, reps: int = 10) -> str:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts = [
+    return [
         (e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:48],
          e.self_device_time_total / reps)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
     ]
+
+
+def device_split(fn, reps: int = 10) -> str:
+    parts = kernel_parts(fn, reps)
     if not parts:
         return "torch.profiler recorded no device time: not measured"
     return "; ".join(f"{name} {us:.2f} us" for name, us in parts)
@@ -460,33 +475,104 @@ def kernel_c_phase(calls, flush):
     return res, windows
 
 
-def ell_timing(res, src, idx, w, label):
-    """Kernel B vs its twin and cuSPARSE at one shape, accumulated into res."""
+ELL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}  # relative to max(|twin|, 1)
 
-    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
-        x = src.to(dtype)
+
+def load_ell_baseline(path: str):
+    """Build another kernel B source with the one-frame C interface
+    ``ell_sparse_pool_launch(src, dtype, S, C, idx, w, T, K, out, stream)``
+    (the kernel before the batched redesign) with the port's flags, and
+    return a caller of it that pools a batch as one frame: the source
+    flattened to [B*S, C] and each frame's indices offset by b*S."""
+
+    import ctypes
+    import hashlib
+
+    digest = hashlib.sha256(open(path, "rb").read()).hexdigest()[:16]
+    lib_path = kernels.BUILD_DIR / f"ell_baseline-{digest}.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path), path],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ell_sparse_pool_launch.argtypes = [P, I, I, I, P, P, I, I, P, P]
+    lib.ell_sparse_pool_launch.restype = I
+
+    def prepare(src, idx, w):
+        b, s, c = src.shape
+        t, k = idx.shape[1:]
+        flat_src = src.reshape(b * s, c)
+        flat_idx = (idx + (torch.arange(b, device=idx.device, dtype=torch.int32) * s)[:, None, None])
+        flat_idx, flat_w = flat_idx.reshape(b * t, k).contiguous(), w.reshape(b * t, k)
+        dt = kernels.DTYPE_CODES[src.dtype]
+        dev = src.get_device()
+
+        def call():
+            out = flat_src.new_empty((b * t, c))
+            rc = lib.ell_sparse_pool_launch(flat_src.data_ptr(), dt, b * s, c, flat_idx.data_ptr(),
+                                            flat_w.data_ptr(), b * t, k, out.data_ptr(),
+                                            kernels.stream_ptr(dev))
+            check(rc == 0, f"baseline kernel B launch failed: CUDA error {rc}")
+            return out.reshape(b, t, c)
+
+        return call
+
+    return prepare
+
+
+def ell_timing(res, src, idx, w, label, flush, baseline=None):
+    """Kernel B vs its twin, cuSPARSE and (if given) the earlier kernel at one
+    shape, accumulated into res: src [B, S, C] with tables [B, T, K]."""
+
+    b, s, c = src.shape
+    t, k = idx.shape[1:]
+    for dtype in (torch.bfloat16, torch.float32):
+        x, tol = src.to(dtype), ELL_TOL[dtype]
         err, rel = compare(ell_sparse_pool.sparse_pool_ell_kernel(x, idx, w),
-                           ell_sparse_pool.sparse_pool_ell(x, idx, w), tol, f"kernel B {label} {dtype}")
+                           sparse_pool.sparse_pool_ell_batch_plain(x, idx, w), tol, f"kernel B {label} {dtype}")
         print(f"  B {label} {str(dtype):15s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
         if dtype == src.dtype:
             res["max_abs_err"] = max(res["max_abs_err"], err)
-    s, c = src.shape
-    t, k = idx.shape
-    kern = timings(lambda: ell_sparse_pool.sparse_pool_ell_kernel(src, idx, w))
-    plain = median_ms(lambda: ell_sparse_pool.sparse_pool_ell(src, idx, w))
-    csr = torch.sparse_coo_tensor(
-        torch.stack([torch.arange(t, device=src.device).repeat_interleave(k), idx.long().reshape(-1)]),
-        w.reshape(-1), (t, s),
-    ).coalesce().to_sparse_csr()
-    dense = src.float()
-    lib = timings(lambda: torch.sparse.mm(csr, dense))
-    live = w.reshape(-1) != 0
-    touched = torch.unique(idx.reshape(-1)[live]).numel()
-    need = touched * c * src.element_size() + nbytes(idx, w) + t * c * src.element_size()
-    bnd = add_bound(res, need, 2 * int(live.sum()) * c)
-    print(f"  B {label}: kernel {timing_text(kern)}; plain {plain:.4f} ms call; "
-          f"torch.sparse.mm(CSR) {timing_text(lib)}; bound {bnd:.4f} ({need / 1e6:.2f} MB)")
+    def kernel_call():
+        return ell_sparse_pool.sparse_pool_ell_kernel(src, idx, w)
+
+    kern = timings(kernel_call, flush)
+    kern["profiled_us"] = sum(us for _, us in kernel_parts(kernel_call))
+    plain = median_ms(lambda: sparse_pool.sparse_pool_ell_batch_plain(src, idx, w))
+    # library: cuSPARSE CSR x dense over the flattened batch (row b*T + t, column b*S + idx)
+    rows = torch.arange(b * t, device=src.device).repeat_interleave(k)
+    cols = (idx.long() + (torch.arange(b, device=src.device) * s)[:, None, None]).reshape(-1)
+    csr = torch.sparse_coo_tensor(torch.stack([rows, cols]), w.reshape(-1), (b * t, b * s)
+                                  ).coalesce().to_sparse_csr()
+    dense = src.reshape(b * s, c).float()
+    lib = timings(lambda: torch.sparse.mm(csr, dense), flush)
+    lib_us = sum(us for _, us in kernel_parts(lambda: torch.sparse.mm(csr, dense)))
+    res["library_profiled_us"] = res.get("library_profiled_us", 0.0) + lib_us
+    live = (w != 0).reshape(-1)
+    n_live = int(live.sum())
+    touched = torch.unique(cols[live]).numel()
+    need = touched * c * src.element_size() + nbytes(idx, w) + b * t * c * src.element_size()
+    bnd = add_bound(res, need, 2 * n_live * c)
+    taps = n_live * c * src.element_size()
+    print(f"  B {label}: kernel {timing_text(kern)}, {kern['profiled_us']:.2f} us kernel execution "
+          f"(torch.profiler); plain {plain:.4f} ms call; "
+          f"torch.sparse.mm(CSR) {timing_text(lib)}, {lib_us:.2f} us kernel execution; "
+          f"bound {bnd:.4f} ({need / 1e6:.2f} MB: "
+          f"{touched} distinct source rows); live slots {n_live} of {b * t * k} "
+          f"({n_live / (b * t * k):.4f}), {n_live / (b * t):.3f} a row; tap reads "
+          f"{taps / 1e6:.2f} MB ({taps / need:.2f} x the bound's bytes)")
     add_times(res, kern, plain, lib)
+    if baseline is not None:
+        call = baseline(src, idx, w)
+        err = (call().float() - sparse_pool.sparse_pool_ell_batch_plain(src, idx, w).float()
+               ).abs().max().item()
+        base = timings(call, flush)
+        base["profiled_us"] = sum(us for _, us in kernel_parts(call))
+        print(f"  B {label}: earlier kernel (one launch over the flattened batch) {timing_text(base)}, "
+              f"{base['profiled_us']:.2f} us kernel execution (torch.profiler); "
+              f"max abs diff to the twin {err:.2e}")
+        for key, value in base.items():
+            res[f"earlier_{key}"] = res.get(f"earlier_{key}", 0.0) + value
     return res
 
 
@@ -551,7 +637,7 @@ def card_vs_cpu_phase():
           f"(info: greedy NMS may reorder near-equal scores)")
 
 
-def main(device: str = "cuda") -> int:
+def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -599,25 +685,38 @@ def main(device: str = "cuda") -> int:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
     res_a = kernel_a_phase(a_calls, flush)
     res_c, windows = kernel_c_phase(c_calls, flush)
-    del flush
-    frame0 = requests[0][0][0]
-    m_bev, m_fv = ell_tables(frame0, cfg, ext)
-    src_fv = a_calls[0][0][0].reshape(-1, a_calls[0][0].shape[-1])  # FV feats feeding BEV cells
-    src_bev = a_calls[1][0][0].reshape(-1, a_calls[1][0].shape[-1])
-    tables = [(src_fv, m_bev), (src_bev, m_fv)]
-    res_b = new_result()
-    for src, m in tables:
-        idx = torch.from_numpy(m.ell_src).to(device)
-        w = torch.from_numpy(m.ell_w).to(device)
-        ell_timing(res_b, src, idx, w, f"S={src.shape[0]} T={idx.shape[0]} K={idx.shape[1]} C={src.shape[1]}")
+    floor = timings(lambda: torch.cuda._sleep(0))
+    print(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) {timing_text(floor)}; "
+          f"{device_split(lambda: torch.cuda._sleep(0))} kernel execution (torch.profiler)")
+    baseline = load_ell_baseline(ell_baseline) if ell_baseline else None
+    # kernel B's tables: request 0's 8 frames, each its own host ELL tables;
+    # its sources: the post-projection mid features that kernel A pools
+    frame_tables = [ell_tables(f, cfg, ext) for f in requests[0][0]]
+    b_dirs = []
+    for d, label in enumerate(("BEV<-FV", "FV<-BEV")):
+        src = a_calls[d][0]
+        b_dirs.append((label, src.reshape(src.shape[0], -1, src.shape[-1]),
+                       torch.from_numpy(np.stack([m[d].ell_src for m in frame_tables])).to(device),
+                       torch.from_numpy(np.stack([m[d].ell_w for m in frame_tables])).to(device)))
+    one_frame = new_result()
+    for label, src, idx, w in b_dirs:
+        ell_timing(one_frame, src[:1], idx[:1], w[:1],
+                   f"one frame {label} S={src.shape[1]} T={idx.shape[1]} K={idx.shape[2]} C={src.shape[2]}",
+                   flush, baseline)
     g = torch.Generator().manual_seed(0)
     probe = ell_timing(
         new_result(),
-        torch.rand(7488, 32, generator=g).to(device),
-        torch.randint(0, 7488, (8832, 8), generator=g, dtype=torch.int32).to(device),
-        torch.rand(8832, 8, generator=g).to(device),
-        "probe S=7488 T=8832 K=8 C=32 f32",
+        torch.rand(1, 7488, 32, generator=g).to(device),
+        torch.randint(0, 7488, (1, 8832, 8), generator=g, dtype=torch.int32).to(device),
+        torch.rand(1, 8832, 8, generator=g).to(device),
+        "probe S=7488 T=8832 K=8 C=32 f32", flush, baseline,
     )
+    res_b = new_result()
+    for label, src, idx, w in b_dirs:
+        ell_timing(res_b, src, idx, w,
+                   f"batch {src.shape[0]} {label} S={src.shape[1]} T={idx.shape[1]} K={idx.shape[2]} C={src.shape[2]}",
+                   flush, baseline)
+    del flush
 
     # 3. main path: 3 requests of batch 8, counts read around exactly these
     reset_counts()
@@ -652,22 +751,24 @@ def main(device: str = "cuda") -> int:
     check(n_valid > 0, "no valid detections")
     profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)))
 
-    # 4. the ELL path (kernel B) on request 0 frame 0
+    # 4. the ELL path (kernel B): request 0's 8 frames, one launch per direction
+    exact_a = [sparse_pool.sparse_pool_patch_plain(*args[:5], True) for args in a_calls]
     reset_counts()
-    exact_a = [sparse_pool.sparse_pool_patch_plain(*args[:5], True)[0] for args in a_calls]
-    for (src, m), exact, label in zip(tables, exact_a, ("BEV<-FV", "FV<-BEV")):
-        idx = torch.from_numpy(m.ell_src).to(device)
-        w = torch.from_numpy(m.ell_w).to(device)
-        got = ell_sparse_pool.sparse_pool_fused(src, idx, w)
-        want = ell_sparse_pool.sparse_pool_ell(src, idx, w)
-        err, rel = compare(got, want, 1e-2, f"ELL path {label}")
-        n_src = np.bincount(m.rows[: m.nnz], minlength=idx.shape[0])
-        small = torch.from_numpy((n_src > 0) & (n_src <= idx.shape[1])).to(device)
-        gap = (got.float()[small] - exact[small]).abs().max().item() if bool(small.any()) else 0.0
-        print(f"[ELL path] {label}: kernel B vs plain ELL max_abs_err {err:.3e} rel {rel:.3e} (tol 1e-2 rel); "
-              f"info: gap to kernel A's exact pool on {int(small.sum())} rows with <= 8 sources {gap:.3e}")
+    outs = [ell_sparse_pool.sparse_pool_ell_batch(src, idx, w) for _, src, idx, w in b_dirs]
+    torch.cuda.synchronize()
     launches_b = ell_sparse_pool.sparse_pool_ell_kernel.launches
-    check(launches_b >= 2, "kernel B was not launched on the ELL path")
+    print(f"[ELL path] batch {BATCH}, both directions: kernel B launches {launches_b}")
+    check(launches_b == 2, f"kernel B launched {launches_b} times on the ELL path, not once per direction")
+    for d, ((label, src, idx, w), got, exact) in enumerate(zip(b_dirs, outs, exact_a)):
+        tol = ELL_TOL[src.dtype]
+        err, rel = compare(got, sparse_pool.sparse_pool_ell_batch_plain(src, idx, w), tol, f"ELL path {label}")
+        # rows whose every source fits the K slots: the ELL pool is exact there
+        n_src = np.stack([np.bincount(m[d].rows[: m[d].nnz], minlength=idx.shape[1]) for m in frame_tables])
+        small = torch.from_numpy((n_src > 0) & (n_src <= idx.shape[2])).to(device)
+        gap = (got.float()[small] - exact[small]).abs().max().item() if bool(small.any()) else 0.0
+        print(f"[ELL path] {label}: kernel B vs plain ELL over {src.shape[0]} frames max_abs_err {err:.3e} "
+              f"rel {rel:.3e} (tol {tol:g} rel); info: gap to kernel A's exact pool on "
+              f"{int(small.sum())} rows with <= {idx.shape[2]} sources {gap:.3e}")
 
     # 5. end to end on the card against the CPU at the narrow parity config
     print("[card vs CPU]")
@@ -681,22 +782,23 @@ def main(device: str = "cuda") -> int:
         ("group_crop", "sparse_pooling_tpu_torch/csrc/group_crop.cu",
          "tools/probe_pallas_roi.py:121", launches_c, res_c),
     ]
+    print("[ell one frame] " + json.dumps({"replaces": "sparse_pooling_tpu/ops/pallas_sparse_pool.py:70",
+                                           **one_frame}))
     print("[ell probe shapes] " + json.dumps({"replaces": "tools/probe_pallas_shpl.py:66", **probe}))
+    print(f"[ell batch {BATCH}] " + json.dumps(res_b))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))
-    print("[L2-cold] " + json.dumps({"sparse_pool_patch_ms": res_a["cold_ms"],
-                                     "group_crop_ms": res_c["cold_ms"]}))
     # ms, plain_ms and library_ms: as the caller sees a call; device_ms,
-    # cold_ms (A and C) and library_device_ms: device work; host_us and
-    # library_host_us: host enqueue. Each sums the kernel's two calls.
+    # cold_ms and library_device_ms: device work; host_us and
+    # library_host_us: host enqueue. Each sums the kernel's two calls (B: its
+    # two directions at batch 8, the ELL path's calls).
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"],
          "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-         "library_ms": r["library_ms"], "device_ms": r["device_ms"],
-         **({"cold_ms": r["cold_ms"]} if name != "ell_sparse_pool" else {}),
+         "library_ms": r["library_ms"], "device_ms": r["device_ms"], "cold_ms": r["cold_ms"],
          "host_us": r["host_us"], "library_device_ms": r["library_device_ms"],
          "library_host_us": r["library_host_us"]}
         for name, src, rep, n, r in entries
@@ -709,4 +811,10 @@ def main(device: str = "cuda") -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--ell-baseline", metavar="CU", default=None,
+                        help="also time this kernel B source with the one-frame C interface "
+                             "(the kernel before the batched redesign) on the same work")
+    sys.exit(main(ell_baseline=parser.parse_args().ell_baseline))

@@ -44,7 +44,7 @@ SIGNATURES = {
         "sparse_pool_patch_launch": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
     },
     "ell_sparse_pool": {
-        "ell_sparse_pool_launch": ([_P, _I, _I, _I, _P, _P, _I, _I, _P, _P], _I),
+        "ell_sparse_pool_launch": ([_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P], _I),
     },
     "group_crop": {
         "group_crop_launch": ([_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P], _I),

@@ -10,8 +10,10 @@ Port of the forward of ``sparse_pooling_tpu.ops.sparse_pool``:
   tensor this launches kernel A (``csrc/sparse_pool_patch.cu``, which sorts
   the points by target row and gathers each row once instead of scattering
   per point); on a CPU tensor it runs ``sparse_pool_patch_plain``.
-* ``sparse_pool_ell`` — the plain ELL pool ``out[t] = sum_k w[t,k] *
-  src[idx[t,k]]``, twin of kernel B (``ops/ell_sparse_pool.py``).
+* ``sparse_pool_ell_batch_plain`` — the plain ELL pool of a batch,
+  ``out[b, t] = sum_k w[b,t,k] * src[b, idx[b,t,k]]``, twin of kernel B
+  (``ops/ell_sparse_pool.py``, whose ``sparse_pool_ell_batch`` dispatches on
+  the tensor's device); ``sparse_pool_ell`` is its one-frame case.
 """
 
 from __future__ import annotations
@@ -129,10 +131,27 @@ def sparse_pool_patch_major_batch(
     return fn(src_map, rows, cols, vals, int(num_targets), divide_by_weight_sum, accum_dtype)
 
 
-def sparse_pool_ell(src_feat: torch.Tensor, ell_src: torch.Tensor, ell_w: torch.Tensor) -> torch.Tensor:
-    """ELL sparse-dense product [S, C] x ([T, K], [T, K]) -> [T, C]: f32
-    products summed over K, cast to the source dtype."""
+def sparse_pool_ell_batch_plain(
+    src_feat: torch.Tensor,  # [B, S, C]
+    ell_src: torch.Tensor,  # [B, T, K] int32, local to each frame
+    ell_w: torch.Tensor,  # [B, T, K] f32 (0 on padding)
+) -> torch.Tensor:
+    """Plain twin of kernel B and of the JAX ``sparse_pool_ell_batch``:
+    [B, S, C] x ([B, T, K], [B, T, K]) -> [B, T, C], each frame pooled from
+    its own source; f32 products summed over K, cast to the source dtype.
 
-    t, k = ell_src.shape
-    g = src_feat[ell_src.reshape(-1).to(torch.int64)].reshape(t, k, -1)
-    return torch.sum(g.to(torch.float32) * ell_w[..., None], dim=1).to(src_feat.dtype)
+    Indices outside [0, S): this twin wraps a negative one and raises on one
+    >= S (torch indexing); kernel B drops both; JAX's ``jnp.take`` wraps -1
+    and returns NaN for >= S. The host builder emits only [0, S)."""
+
+    b, t, k = ell_src.shape
+    frames = torch.arange(b, device=ell_src.device)[:, None]
+    g = src_feat[frames, ell_src.reshape(b, t * k).to(torch.int64)].reshape(b, t, k, -1)
+    return torch.sum(g.to(torch.float32) * ell_w[..., None], dim=2).to(src_feat.dtype)
+
+
+def sparse_pool_ell(src_feat: torch.Tensor, ell_src: torch.Tensor, ell_w: torch.Tensor) -> torch.Tensor:
+    """ELL sparse-dense product of one frame [S, C] x ([T, K], [T, K]) ->
+    [T, C]: the B = 1 case of ``sparse_pool_ell_batch_plain``."""
+
+    return sparse_pool_ell_batch_plain(src_feat[None], ell_src[None], ell_w[None])[0]

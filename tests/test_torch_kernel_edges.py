@@ -1,4 +1,5 @@
-"""Kernels A (patch pool) and C (grouped crop) at their edge cases.
+"""Kernels A (patch pool), B (ELL pool) and C (grouped crop) at their edge
+cases.
 
 The same seeded inputs go two ways:
 
@@ -6,10 +7,11 @@ The same seeded inputs go two ways:
   as tests/test_torch_kernels.py holds them), so the twins are a trusted
   yardstick at these inputs too;
 * on the card (marker ``cuda``), each CUDA kernel against its twin in f32
-  and bf16, with chip_smoke.py's tolerances: A 1e-4 and C 1e-5 (f32) or
-  2e-2 (bf16), relative to max(|twin|, 1). A sums a row's terms in an order
-  that atomics decide; C rounds once in bf16 where the twin rounds after
-  each of its two products.
+  and bf16, with chip_smoke.py's tolerances: A 1e-4, B 1e-5 (f32) or 1e-2
+  (bf16), C 1e-5 (f32) or 2e-2 (bf16), relative to max(|twin|, 1). A sums a
+  row's terms in an order that atomics decide; B and C round once in bf16
+  from f32 sums taken in another order than the twin's (C's twin also
+  rounds after each of its two products).
 
 A: target rows of 250, 40 and 24 points (whose points the gather's
 sub-groups share) among many empty rows, ids -1, T and T + 7 (dropped or
@@ -18,7 +20,12 @@ source side of 1, points whose four weights are all 0, C = 4, 6, 33 and 64
 (8 channels a lane in the gather at C = 64, else 1), and a source that is
 not 16-byte aligned. C: C = 3, 5 and 8, H or W
 below the patch, V = 1, 8 and 32, boxes running off the map's edges, and an
-image that is not 16-byte aligned (the generic path at C = 8).
+image that is not 16-byte aligned (the generic path at C = 8). B: batches
+of 1 and 3 frames (one launch each), C = 3, 5, 8, 32, 64 and 72 (vector and
+scalar paths), K = 1, 3, 8 and 16 (the K = 8 path and any K), T = 37 (a
+ragged last block), rows that are all padding or padded past their first
+slots, tensors that are not 16-byte aligned, and indices outside [0, S),
+which the kernel drops.
 
 JAX is imported inside a fixture, so this file runs where JAX or flax is
 missing: there the CPU parity tests skip and the card tests still run
@@ -29,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_pooling_tpu_torch.ops import crop_resize, sparse_pool
+from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool
 
 
 @pytest.fixture
@@ -41,6 +48,17 @@ def jax_ops():
     from sparse_pooling_tpu.ops import sparse_pool as j_sp
 
     return jnp, j_sp, j_crop
+
+
+@pytest.fixture
+def jax_ell():
+    pytest.importorskip("jax")
+    pytest.importorskip("flax")
+    import jax.numpy as jnp
+    from sparse_pooling_tpu.ops import sparse_pool as j_sp
+    from sparse_pooling_tpu.ops.pallas_sparse_pool import sparse_pool_ell_pallas
+
+    return jnp, j_sp.sparse_pool_ell_batch, sparse_pool_ell_pallas
 
 
 @pytest.fixture
@@ -208,3 +226,90 @@ def test_kernel_c_matches_plain_on_card_at_edges(cuda, case, dtype, rel, misalig
     assert crop_resize.crop_and_resize_group_kernel.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     _assert_rel(got, want, rel)
+
+
+# ------------------------------------------------------------ kernel B
+
+B_CHANNELS = (3, 5, 8, 32, 64, 72)
+B_SLOTS = (1, 3, 8, 16)
+B_SOURCE, B_TARGETS = 50, 37
+
+
+def _b_inputs(b: int, c: int, k: int):
+    """Seeded batch: T = 37 rows a frame, indices local to each frame, rows
+    2-4 all padding (index 0, weight 0, as the host builder pads) and row 7
+    padded past its first half."""
+
+    rng = np.random.RandomState(100 * b + 10 * k + c)
+    src = rng.randn(b, B_SOURCE, c).astype(np.float32)
+    idx = rng.randint(0, B_SOURCE, (b, B_TARGETS, k)).astype(np.int32)
+    w = rng.rand(b, B_TARGETS, k).astype(np.float32)
+    idx[:, 2:5], w[:, 2:5] = 0, 0.0
+    idx[:, 7, k // 2:], w[:, 7, k // 2:] = 0, 0.0
+    return src, idx, w
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("c", [5, 32])
+@pytest.mark.parametrize("b", [1, 3])
+def test_kernel_b_plain_matches_jax_batch(jax_ell, b, c, k):
+    """The batched twin against JAX ``sparse_pool_ell_batch``, and each frame
+    against the Pallas kernel in interpret mode."""
+
+    jnp, ell_batch, ell_pallas = jax_ell
+    src, idx, w = _b_inputs(b, c, k)
+    got = sparse_pool.sparse_pool_ell_batch_plain(
+        torch.from_numpy(src), torch.from_numpy(idx), torch.from_numpy(w)
+    )
+    assert got.dtype == torch.float32 and got.shape == (b, B_TARGETS, c)
+    want = np.asarray(ell_batch(jnp.array(src), jnp.array(idx), jnp.array(w)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    for f in range(b):
+        frame = np.asarray(ell_pallas(jnp.array(src[f]), jnp.array(idx[f]), jnp.array(w[f]),
+                                      tile_t=16, interpret=True))
+        np.testing.assert_allclose(got[f].numpy(), frame, atol=1e-5)
+    assert (got[:, 2:5] == 0).all()  # all-padding rows pool to 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", B_SLOTS)
+@pytest.mark.parametrize("c", B_CHANNELS)
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_kernel_b_matches_plain_on_card_at_edges(cuda, dtype, rel, misaligned, c, k, b):
+    src, idx, w = _b_inputs(b, c, k)
+    x = _on_card(src, cuda, dtype, misaligned)
+    i, wt = (_on_card(a, cuda, misaligned=misaligned) for a in (idx, w))
+    before = ell_sparse_pool.sparse_pool_ell_kernel.launches
+    got = ell_sparse_pool.sparse_pool_ell_batch(x, i, wt)
+    want = sparse_pool.sparse_pool_ell_batch_plain(x, i, wt)
+    torch.cuda.synchronize()
+    assert ell_sparse_pool.sparse_pool_ell_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == (b, B_TARGETS, c)
+    _assert_rel(got, want, rel)
+    assert bool((got[:, 2:5] == 0).all())
+    if b == 1:  # the one-frame entry point is the same kernel at B = 1
+        _assert_rel(ell_sparse_pool.sparse_pool_fused(x[0], i[0], wt[0]), want[0], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_kernel_b_drops_indices_outside_the_frame(cuda, dtype, rel, k):
+    """An index outside [0, S) adds nothing, in every frame: the kernel equals
+    the twin given those slots as padding (index 0, weight 0)."""
+
+    src, idx, w = _b_inputs(3, 64, k)
+    bad = np.array([-1, -B_SOURCE, B_SOURCE, B_SOURCE + 3, 2**30, -2**31], np.int32)
+    idx[:, 10:16, 0] = bad
+    idx[1, 20, :] = B_SOURCE  # a whole row out of range
+    ok = (idx >= 0) & (idx < B_SOURCE)
+    x = torch.from_numpy(src).to(cuda, dtype)
+    got = ell_sparse_pool.sparse_pool_ell_kernel(
+        x, torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda))
+    want = sparse_pool.sparse_pool_ell_batch_plain(
+        x, torch.from_numpy(np.where(ok, idx, 0)).to(cuda), torch.from_numpy(np.where(ok, w, 0.0)).to(cuda))
+    torch.cuda.synchronize()
+    _assert_rel(got, want, rel)
+    assert bool((got[1, 20] == 0).all())

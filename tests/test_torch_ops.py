@@ -58,7 +58,47 @@ def _points(seed, n=600, pad=40):
     return pts, mask
 
 
+def _packed_heights_f64(pts, mask, plane, bev):
+    """The packed voxelizer's height channels, [B, H2, W2, 4, slices],
+    evaluated in float64 from the same float32 inputs (numpy, no framework)."""
+
+    h, w = bev.grid_hw(T_EXT)
+    ns = bev.height_slices
+    slice_h = (bev.height_hi - bev.height_lo) / ns
+    x, y, z = (pts[..., i].astype(np.float64) for i in range(3))
+    e = T_EXT
+    valid = (mask & (x >= e.x_min) & (x < e.x_max) & (y >= e.y_min) & (y < e.y_max)
+             & (z >= e.z_min) & (z < e.z_max))
+    col = np.clip(np.floor((x - e.x_min) / bev.voxel_size), 0, w - 1).astype(np.int64)
+    row = np.clip(np.floor((z - e.z_min) / bev.voxel_size), 0, h - 1).astype(np.int64)
+    gp = plane.astype(np.float64)[:, :, None]
+    heights = x * gp[:, 0] + y * gp[:, 1] + z * gp[:, 2] + gp[:, 3] - bev.height_lo
+    s = np.floor(heights / slice_h).astype(np.int64)
+    keep = valid & (s >= 0) & (s < ns)
+    out = np.zeros((pts.shape[0], (h + bev.pad_h) // 2, w // 2, 4, ns))
+    b = np.broadcast_to(np.arange(pts.shape[0])[:, None], keep.shape)
+    np.maximum.at(out, (b[keep], row[keep] // 2, col[keep] // 2, (row[keep] % 2) * 2 + col[keep] % 2,
+                        s[keep]), ((heights - s * slice_h) / slice_h)[keep])
+    return out, heights, valid
+
+
 def test_voxelizer_packed_matches_jax():
+    """Both voxelizers against a float64 evaluation of the same inputs, so a
+    failure names the side that moved, and against each other.
+
+    Tolerance, from the float32 rounding of a height: each side forms
+    x*a + y*b + z*c + d - lo in 3 products and 4 sums, then the slice offset
+    (one more difference), 8 roundings of at most half an ulp of the largest
+    partial sum h_max, in whatever order its compiler fuses them; the packed
+    value divides by slice_h. So each side lies within 4 ulp(h_max) /
+    slice_h of the float64 value, and the two within twice that (7.6e-6
+    here, where h_max < 8; the largest difference seen is 4.8e-7, one ulp of
+    a height in [2, 4) over slice_h = 0.5). The nearest height lies 1e-4
+    slice units from a slice edge, and the nearest point 2e-4 cells from a
+    cell edge, far outside this envelope, so no point may change slice or
+    cell. The density channel, log(n + 1) / log(16) of the same integer
+    counts, rounds within a few ulps of 1, inside the same bound."""
+
     bev = tcfg_mod.BevConfig()
     pts, mask = zip(*(_points(s) for s in (0, 1)))
     pts, mask = np.stack(pts), np.stack(mask)
@@ -69,7 +109,20 @@ def test_voxelizer_packed_matches_jax():
     tp, tc = t_bev.bev_maps_packed_batch(
         torch.from_numpy(pts), torch.from_numpy(mask), torch.from_numpy(plane), T_EXT, bev
     )
-    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-5)
+    want, heights, valid = _packed_heights_f64(pts, mask, plane, bev)
+    ns = bev.height_slices
+    slice_h = (bev.height_hi - bev.height_lo) / ns
+    gp = np.abs(plane.astype(np.float64))[:, :, None]
+    h_max = (np.abs(pts[..., 0]) * gp[:, 0] + np.abs(pts[..., 1]) * gp[:, 1]
+             + np.abs(pts[..., 2]) * gp[:, 2] + gp[:, 3] + abs(bev.height_lo))[valid].max()
+    side_tol = 4 * float(np.spacing(np.float32(h_max))) / slice_h
+    edge = np.abs(heights / slice_h - np.round(heights / slice_h))[valid].min()
+    assert edge > 2 * side_tol, f"a height lies {edge:.2e} slice units from a slice edge"
+    jn, tn = np.asarray(jp), tp.numpy()
+    for side, got in (("JAX", jn), ("port", tn)):
+        np.testing.assert_allclose(got.reshape(want.shape[:4] + (ns + 1,))[..., :ns], want,
+                                   rtol=0, atol=side_tol, err_msg=f"{side} heights vs float64")
+    np.testing.assert_allclose(tn, jn, rtol=0, atol=2 * side_tol)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     h = bev.grid_hw(T_EXT)[0]
     np.testing.assert_array_equal(

@@ -91,6 +91,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     w = vals[0, :10, :3].contiguous()
     x = src[0].reshape(35, 4)
     torch.testing.assert_close(ell_sparse_pool.sparse_pool_fused(x, idx, w), sparse_pool.sparse_pool_ell(x, idx, w))
+    xb, idxb, wb = src.reshape(2, 35, 4), rows.reshape(2, 10, 3), vals[:, :10, :3].contiguous()
+    torch.testing.assert_close(ell_sparse_pool.sparse_pool_ell_batch(xb, idxb, wb),
+                               sparse_pool.sparse_pool_ell_batch_plain(xb, idxb, wb))
     boxes = torch.rand(2, 3, 4, 4) * 5
     torch.testing.assert_close(
         crop_resize.crop_and_resize_group_einsum_px(src, boxes, (3, 3), 4),
@@ -109,6 +112,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="expected cuda"):
         ell_sparse_pool.sparse_pool_ell_kernel(src[0].reshape(35, 4), rows[0].reshape(10, 3),
                                                vals[0, :10, :3].contiguous())
+    with pytest.raises(ValueError, match="expected cuda"):
+        ell_sparse_pool.sparse_pool_ell_kernel(src.reshape(2, 35, 4), rows.reshape(2, 10, 3),
+                                               vals[:, :10, :3].contiguous())
     with pytest.raises(ValueError, match="expected cuda"):
         crop_resize.crop_and_resize_group_kernel(src, torch.rand(2, 3, 4, 4), (3, 3), 4)
 
@@ -158,7 +164,7 @@ def test_kernel_b_matches_plain_on_card(cuda, dtype, atol):
     x = torch.randn(300, 16, generator=g).to(dtype).to(cuda)
     idx = torch.randint(0, 300, (77, 8), generator=g, dtype=torch.int32).to(cuda)
     w = torch.rand(77, 8, generator=g).to(cuda)
-    got = ell_sparse_pool.sparse_pool_ell_kernel(x, idx, w)
+    got = ell_sparse_pool.sparse_pool_ell_kernel(x[None], idx[None], w[None])[0]
     want = sparse_pool.sparse_pool_ell(x, idx, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
