@@ -33,7 +33,22 @@ non-zero):
    printed for information;
 5. the narrow parity config on the card against the same model on the CPU
    (f32, TF32 off): the RPN outputs must agree;
-6. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+6. training, the cars preset at full width (bf16 compute, f32 parameters),
+   batch 8 synthetic frames with ``gt_boxes_3d[0]`` moved onto a point
+   cluster: the backward kernels A-bwd and C-bwd against their twins at the
+   shapes of one real training step (inputs recorded from it), timed as the
+   forwards are, against ``torch.sparse.mm`` with the transposed matrix and
+   ``F.grid_sample``'s input gradient; ``Trainer.train(6)`` with a
+   checkpoint at step 6 (counts read around exactly these 6 steps: A, C,
+   A-bwd and C-bwd twice a step), every step's losses, grad norm, sampled
+   positives and time, peak memory, a torch.profiler split of one more step,
+   a fresh ``Trainer`` that restores step 6 exactly and takes step 7, and 10
+   steps on one fixed batch (no path drop, no dropout, fixed sampling noise)
+   that must lower its loss;
+7. one training step of the narrow parity config on the card against the
+   CPU, with stage-2 positives sampled: losses and every parameter's
+   gradient;
+8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -42,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -55,6 +71,9 @@ from sparse_pooling_tpu_torch.data.sparse_matrix import build_sparse_pooling_inp
 from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame, trim_points_to_bucket
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool
+from sparse_pooling_tpu_torch.runtime import checkpoint as ckpt_mod
+from sparse_pooling_tpu_torch.runtime import trainer as tr
+from sparse_pooling_tpu_torch.runtime.summary import read_scalars
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -62,6 +81,7 @@ SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock, to size the pre-run spin
 SPIN_MIN_S = 50e-6
 FLUSH_BYTES = 128 * 2**20  # written between cold runs: over twice the 50 MB L2
 BATCH, REQUESTS, N_POINTS = 8, 3, 16384
+TRAIN_STEPS, FIXED_STEPS = 6, 10
 REPS = 20
 HOST_BURST = 20  # calls per round of host_us: under 200 launches, far from a full queue
 
@@ -202,10 +222,22 @@ def recording(module, name: str, store: list):
         setattr(module, name, orig)
 
 
+COUNTED = {
+    "A": sparse_pool.sparse_pool_patch_kernel,
+    "B": ell_sparse_pool.sparse_pool_ell_kernel,
+    "C": crop_resize.crop_and_resize_group_kernel,
+    "A-bwd": sparse_pool.sparse_pool_patch_bwd_kernel,
+    "C-bwd": crop_resize.crop_and_resize_group_bwd_kernel,
+}
+
+
 def reset_counts() -> None:
-    sparse_pool.sparse_pool_patch_kernel.launches = 0
-    ell_sparse_pool.sparse_pool_ell_kernel.launches = 0
-    crop_resize.crop_and_resize_group_kernel.launches = 0
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+
+
+def counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
 
 
 def make_batch(cfg, request: int, device):
@@ -229,7 +261,7 @@ def run_request(model, batch, anchors, cfg, ext):
 
 # name substrings -> category, first match wins (kernel names on the card)
 KERNEL_CATEGORIES = (
-    ("hand kernels A/B/C", ("patch_pool", "group_crop", "ell_pool")),
+    ("hand kernels A, B, C, A-bwd, C-bwd", ("patch_pool", "group_crop", "ell_pool")),
     ("convolution (cuDNN)", ("fprop", "conv", "nhwckrsc")),
     ("matmul (cuBLAS)", ("gemm",)),
     ("gather/scatter/index", ("scatter", "gather", "index")),
@@ -358,9 +390,10 @@ def kernel_a_phase(calls, flush):
         print(f"  A {tuple(src.shape)}->T={t}: {patch_pool_stats(rows, vals, t)}")
         for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
             x = src.to(dtype)
-            got = sparse_pool.sparse_pool_patch_kernel(x, rows, cols, vals, t, True)
-            want = sparse_pool.sparse_pool_patch_plain(x, rows, cols, vals, t, True)
+            got, got_den = sparse_pool.sparse_pool_patch_kernel(x, rows, cols, vals, t, True)
+            want, want_den = sparse_pool.sparse_pool_patch_plain(x, rows, cols, vals, t, True)
             err, rel = compare(got, want, tol, f"kernel A {tuple(src.shape)} {dtype}")
+            compare(got_den, want_den, 1e-5, f"kernel A {tuple(src.shape)} {dtype} weight sums")
             print(f"  A {tuple(src.shape)}->T={t} {str(dtype):15s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
             if dtype == src.dtype:
                 res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -385,7 +418,7 @@ def kernel_a_phase(calls, flush):
         den = lib_out[:, c:]
         lib_pool = torch.where(den > 1e-12, lib_out[:, :c] / den.clamp_min(1e-12), 0.0)
         lib_err = (lib_pool.reshape(b, t, c) - sparse_pool.sparse_pool_patch_kernel(
-            src, rows, cols, vals, t, True)).abs().max().item()
+            src, rows, cols, vals, t, True)[0]).abs().max().item()
         lib = timings(lambda: torch.sparse.mm(csr, dense), flush)
         # source cells the live points' windows need, each once
         live = (vals != 0).any(-1)
@@ -637,6 +670,381 @@ def card_vs_cpu_phase():
           f"(info: greedy NMS may reorder near-equal scores)")
 
 
+# ------------------------------------------------------------ training
+
+
+# relative to max |twin| (a step's gradients are far below 1): bf16 2**-6,
+# two ulps of the largest value (kernel and twin each round an f32 sum once);
+# f32 1e-5
+BWD_TOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
+
+
+def compare_grad(got, want, tol_rel: float, what: str):
+    """Max abs error and its ratio to max |want|, with no floor on the
+    scale; fails above tol_rel, and fails if the check would also pass a
+    zeroed or a halved output."""
+
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite kernel output")
+    scale = want.abs().max().item()
+    check(scale > 0, f"{what}: the twin's gradient is all zero, the check would say nothing")
+    err = (got - want).abs().max().item()
+    check(err <= tol_rel * scale, f"{what}: max abs err {err:.3e} > {tol_rel:g} * {scale:.3g}")
+    for broken in (torch.zeros_like(got), 0.5 * got):
+        check((broken - want).abs().max().item() > tol_rel * scale,
+              f"{what}: the check would pass a zeroed or halved output")
+    return err, err / scale, scale
+
+
+def kernel_a_bwd_phase(calls, flush):
+    """A-bwd at the two recorded calls of one training step (BEV<-FV and
+    FV<-BEV: the gradients of the image and BEV mid maps), in the main path's
+    bf16 and in f32, against its twin (f32 sums, rounded once); the library
+    yardstick is ``torch.sparse.mm`` of the transposed CSR (weights over the
+    row's weight sum) with the output gradient."""
+
+    res = new_result()
+    for args in calls:
+        g, rows, cols, vals, src_hw, den, dtype = args[:7]
+        b, t, c = g.shape
+        hs, ws = src_hw
+        label = f"A-bwd [{b},{t},{c}]->[{b},{hs},{ws},{c}]"
+        for dt in (dtype, torch.float32):
+            got = sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dt)
+            want = sparse_pool.sparse_pool_patch_bwd_plain(g, rows, cols, vals, src_hw, den, dt)
+            err, rel, scale = compare_grad(got, want, BWD_TOL[dt], f"kernel {label} {dt}")
+            print(f"  {label} {str(dt):15s} max_abs_err {err:.3e} rel {rel:.3e} of max |twin| "
+                  f"{scale:.3e} (tol {BWD_TOL[dt]:g} rel; a zeroed or halved output fails)")
+            if dt == dtype:
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+
+        def kernel_call():
+            return sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dtype)
+
+        kern = timings(kernel_call, flush)
+        print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
+        plain = median_ms(lambda: sparse_pool.sparse_pool_patch_bwd_plain(
+            g, rows, cols, vals, src_hw, den, dtype))
+        # library: cuSPARSE, the transposed matrix (source cell x target row)
+        # with each weight over its row's weight sum, times g
+        rid = (rows.long() + torch.arange(b, device=g.device)[:, None] * t)[..., None].expand(b, -1, 4)
+        cid = cols.long() + torch.arange(b, device=g.device)[:, None, None] * (hs * ws)
+        scale = torch.ones(b * t, device=g.device) if den is None else torch.where(
+            den.reshape(-1) > 1e-12, 1.0 / den.reshape(-1).clamp_min(1e-12), 0.0)
+        wt = vals * scale[rid.clamp(0, b * t - 1)]
+        live = (wt != 0) & (rid >= 0) & (rid < b * t) & (cid >= 0) & (cid < b * hs * ws)
+        csr_t = torch.sparse_coo_tensor(torch.stack([cid[live], rid[live]]), wt[live],
+                                        (b * hs * ws, b * t)).coalesce().to_sparse_csr()
+        g_flat = g.reshape(b * t, c)
+        lib_out = torch.sparse.mm(csr_t, g_flat)
+        lib_err = (lib_out.reshape(b, hs, ws, c) - sparse_pool.sparse_pool_patch_bwd_plain(
+            g, rows, cols, vals, src_hw, den, torch.float32)).abs().max().item()
+        lib = timings(lambda: torch.sparse.mm(csr_t, g_flat), flush)
+        n_live = int(live.sum())
+        rows_read = torch.unique(rid[live]).numel()
+        per_cell = torch.bincount(cid[live], minlength=b * hs * ws)
+        filled = per_cell[per_cell > 0].float()
+        need = (rows_read * (c + (den is not None)) * 4 + nbytes(rows, cols, vals)
+                + b * hs * ws * c * torch.empty((), dtype=dtype).element_size())
+        bnd = add_bound(res, need, 2 * n_live * c)
+        print(f"  {label}: live corner entries {n_live} of {4 * rows.numel()}; source cells "
+              f"reached {filled.numel()} of {b * hs * ws}, entries per reached cell mean "
+              f"{filled.mean().item():.2f} max {int(filled.max().item())}; kernel {timing_text(kern)}; "
+              f"plain {plain:.4f} ms call; torch.sparse.mm(transposed CSR) {timing_text(lib)} "
+              f"(max diff {lib_err:.2e}); bound {bnd:.4f} ({need / 1e6:.2f} MB: {rows_read} "
+              f"distinct rows of g read)")
+        add_times(res, kern, plain, lib)
+    return res
+
+
+def kernel_c_bwd_phase(calls, flush):
+    """C-bwd at the two recorded calls of one training step (BEV and image
+    RPN crops) in the main path's bf16 and in f32, against the twin summing
+    in f32; the gap to the twin summing in bf16 (the reference's
+    accumulator) is printed. Library yardstick: the input gradient of
+    ``F.grid_sample`` (f32, bilinear, border) at the window-clamped samples,
+    its backward alone (autograd over a kept graph)."""
+
+    res = new_result()
+    for args in calls:
+        grad, boxes, image_shape, crop_hw, patch, dtype = args[:6]
+        b, h, w, c = image_shape
+        label = f"C-bwd {tuple(grad.shape)}->{tuple(image_shape)} patch {patch}"
+        for dt in (dtype, torch.float32):
+            gd = grad.to(dt)
+            got = crop_resize.crop_and_resize_group_bwd_kernel(gd, boxes, image_shape, crop_hw, patch, dt)
+            want = crop_resize.crop_and_resize_group_bwd_plain(gd, boxes, image_shape, crop_hw, patch, dt)
+            err, rel, scale = compare_grad(got, want, BWD_TOL[dt], f"kernel {label} {dt}")
+            print(f"  {label} {str(dt):15s} max_abs_err {err:.3e} rel {rel:.3e} of max |twin| "
+                  f"{scale:.3e} (tol {BWD_TOL[dt]:g} rel; a zeroed or halved output fails)")
+            if dt == dtype:
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+        kern_out = crop_resize.crop_and_resize_group_bwd_kernel(grad, boxes, image_shape, crop_hw, patch, dtype)
+        acc_twin = crop_resize.crop_and_resize_group_bwd_plain(grad, boxes, image_shape, crop_hw, patch,
+                                                               dtype, crop_resize.acc_dtype(dtype))
+        f32_truth = crop_resize.crop_and_resize_group_bwd_plain(grad.float(), boxes, image_shape, crop_hw,
+                                                                patch, torch.float32)
+        print(f"  {label}: info, against the f32 sum of the same gradients: kernel "
+              f"{(kern_out.float() - f32_truth).abs().max().item():.3e}, twin summing in "
+              f"{crop_resize.acc_dtype(dtype)} (the reference's accumulator) "
+              f"{(acc_twin.float() - f32_truth).abs().max().item():.3e}; kernel vs that twin "
+              f"{(kern_out.float() - acc_twin.float()).abs().max().item():.3e} (max |grad| "
+              f"{f32_truth.abs().max().item():.3e})")
+
+        def kernel_call():
+            return crop_resize.crop_and_resize_group_bwd_kernel(grad, boxes, image_shape, crop_hw, patch, dtype)
+
+        kern = timings(kernel_call, flush)
+        print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
+        plain = median_ms(lambda: crop_resize.crop_and_resize_group_bwd_plain(
+            grad, boxes, image_shape, crop_hw, patch, dtype))
+        ys, xs, y0, x0 = crop_resize._group_starts(boxes, h, w, crop_hw, patch)
+        py, px = min(patch, h), min(patch, w)
+        ye = y0[..., None, None] + torch.clamp(ys - y0[..., None, None], 0.0, py - 1.0)
+        xe = x0[..., None, None] + torch.clamp(xs - x0[..., None, None], 0.0, px - 1.0)
+        _, pu, v, ch = ys.shape
+        cw = xs.shape[-1]
+        gy = (2 * ye / (h - 1) - 1)[..., :, None].expand(b, pu, v, ch, cw)
+        gx = (2 * xe / (w - 1) - 1)[..., None, :].expand(b, pu, v, ch, cw)
+        grid = torch.stack([gx, gy], -1).reshape(b, pu * v * ch, cw, 2)
+        x_req = torch.zeros((b, c, h, w), device=grad.device, requires_grad=True)
+        lib_fwd = torch.nn.functional.grid_sample(x_req, grid, mode="bilinear", padding_mode="border",
+                                                  align_corners=True)
+        g_nchw = grad.float().reshape(b, pu * v * ch, cw, c).permute(0, 3, 1, 2).contiguous()
+
+        def lib_call():
+            return torch.autograd.grad(lib_fwd, x_req, g_nchw, retain_graph=True)[0]
+
+        lib_err = (lib_call().permute(0, 2, 3, 1) - f32_truth).abs().max().item()
+        lib = timings(lib_call, flush)
+        n_grad = grad.numel()
+        need = n_grad * grad.element_size() + nbytes(boxes) + b * h * w * c * grad.element_size()
+        bnd = add_bound(res, need, 8 * n_grad)
+        print(f"  {label}: kernel {timing_text(kern)}; plain {plain:.4f} ms call; grid_sample input "
+              f"gradient (f32) {timing_text(lib)} (max diff to the f32 sum {lib_err:.2e}); bound "
+              f"{bnd:.4f} ({need / 1e6:.2f} MB)")
+        add_times(res, kern, plain, lib)
+    return res
+
+
+def gt_on_cluster(frame, ext):
+    """Move ``gt_boxes_3d[0]`` onto the synthetic frame's densest car-like
+    cluster inside ``ext`` (above the ground, off the lateral walls), so the
+    minibatches hold positives (the generator's own box lies on no points)."""
+
+    pts = frame["points"][frame["points_mask"]]
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    ok = ((y < 1.5) & (np.abs(x) < 0.45 * z + 2) & (x > ext.x_min + 2) & (x < ext.x_max - 2)
+          & (z > ext.z_min + 1) & (z < ext.z_max - 2))
+    cx, cz = x[ok], z[ok]
+    near = (np.abs(cx[:, None] - cx[None]) < 2.0) & (np.abs(cz[:, None] - cz[None]) < 1.0)
+    members = near[np.argmax(near.sum(1))]
+    check(members.sum() >= 8, "no point cluster inside the extents")
+    frame["gt_boxes_3d"][0] = [cx[members].mean(), 1.65, cz[members].min() + 0.8, 3.9, 1.6, 1.5, 0.0]
+    return frame
+
+
+def train_frames(cfg_model, ext, seeds, n_points):
+    return [gt_on_cluster(synthetic_frame(cfg_model, n_points=n_points, seed=s, image="noise"), ext)
+            for s in seeds]
+
+
+def train_config(cfg_model, **train):
+    base = cars_pyramid_config()
+    return dataclasses.replace(base, model=cfg_model, train=dataclasses.replace(base.train, **train))
+
+
+def finite_grads(model) -> bool:
+    return all(p.grad is None or bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def profile_train_step(step, batch, gen, step_ms: float) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(batch, gen)
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    if not rows:
+        print("  torch.profiler recorded no device time: training step split not measured")
+        return
+    busy = sum(r[1] for r in rows)
+    print(f"  [profile] one training step: device busy {busy:.2f} ms in {sum(r[2] for r in rows)} "
+          f"kernel launches ({len(rows)} distinct kernels); busy share {busy / step_ms:.3f} of the "
+          f"median unprofiled step {step_ms:.2f} ms")
+    totals = {cat: [0.0, 0] for cat, _ in KERNEL_CATEGORIES}
+    for name, ms, n in rows:
+        cat = next(c for c, keys in KERNEL_CATEGORIES if any(k in name for k in keys))
+        totals[cat][0] += ms
+        totals[cat][1] += n
+    for cat, (ms, n) in totals.items():
+        print(f"  {ms:9.3f} ms {n:6d}x  [{cat}]")
+    for name, ms, n in rows[:12]:
+        print(f"  {ms:9.3f} ms {n:6d}x  {name[:110]}")
+
+
+LOSS_KEYS = ("total", "rpn_objectness", "rpn_regression", "cls", "reg", "orientation", "flip")
+
+
+def training_phase(device, flush):
+    """Phase 6; returns the A-bwd and C-bwd results and their launches in
+    the Trainer's 6 steps."""
+
+    ext = AreaExtents()
+    cfg = train_config(cars_pyramid_config().model, batch_size=BATCH, checkpoint_interval=TRAIN_STEPS,
+                       summary_interval=1)
+    frames = train_frames(cfg.model, ext, range(100, 100 + 2 * BATCH), N_POINTS)
+    dataset = tr.FrameDataset(frames, buckets=cfg.model.sparse_pool.buckets)
+
+    # one real training step, recording the backward kernels' inputs
+    model = pl.make_model(cfg.model, ext, device=device).float()
+    weights.init_like_flax(model, seed=0)
+    opt, sched = tr.build_optimizer(model.parameters(), cfg)
+    anchors = pl.static_anchor_grid(cfg.model, ext, device=device)
+    step = tr.make_train_step(model, opt, sched, anchors, cfg, ext)
+    batch = tr.to_device(next(dataset.batches(BATCH))[0], device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    a_bwd, c_bwd = [], []
+    with recording(sparse_pool, "sparse_pool_patch_bwd_kernel", a_bwd), \
+            recording(crop_resize, "crop_and_resize_group_bwd_kernel", c_bwd):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    check(len(a_bwd) == 2 and len(c_bwd) == 2, "a training step did not reach A-bwd and C-bwd twice")
+    print("[backward kernels vs plain] (as above; inputs of one full-width training step, batch 8)")
+    res_a_bwd = kernel_a_bwd_phase(a_bwd, flush)
+    res_c_bwd = kernel_c_bwd_phase(c_bwd, flush)
+    del a_bwd, c_bwd
+
+    # the Trainer: 6 steps, counts read around exactly these; its workdir
+    # lies under the git-ignored build/ of the checkout
+    workdir = str(kernels.BUILD_DIR.parent / "chip_smoke_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = tr.Trainer(cfg, dataset, ext, workdir=workdir, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = trainer.train(max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = read_scalars(f"{workdir}/summaries")
+    check([r["step"] for r in recs] == list(range(1, TRAIN_STEPS + 1)), "missing step summaries")
+    for r in recs:
+        terms = ", ".join(f"{k} {r[k]:.5f}" for k in LOSS_KEYS)
+        print(f"[training] step {r['step']}: {terms}; grad_norm {r['grad_norm']:.4f}; num_rpn_pos "
+              f"{r['num_rpn_pos']:.2f} num_s2_pos {r['num_s2_pos']:.2f} (means over the batch); "
+              f"lr {r['lr']:.3g}; step {r['step_ms']:.2f} ms (CUDA events) = "
+              f"{1e3 * BATCH / r['step_ms']:.1f} frames/s")
+        check(all(np.isfinite(r[k]) for k in (*LOSS_KEYS, "grad_norm")), f"step {r['step']}: non-finite")
+    check(finite_grads(trainer.model), "non-finite gradients after the last step")
+    check(sum(r["num_rpn_pos"] for r in recs) > 0, "no RPN positives sampled in training")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"[training] {TRAIN_STEPS} steps of batch {BATCH}: launches per step "
+          + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+          + f"; peak memory {peak:.2f} GiB (a second model and its Adam state, kept for the "
+          f"profile and the fixed batch, included)")
+    for name in ("A", "C", "A-bwd", "C-bwd"):
+        check(launches[name] == 2 * TRAIN_STEPS, f"kernel {name}: {launches[name]} launches in "
+              f"{TRAIN_STEPS} steps, not 2 a step")
+    step_ms = float(np.median([r["step_ms"] for r in recs[1:]]))
+    profile_train_step(step, batch, gen, step_ms)
+
+    # parameters moved; a fresh trainer restores step 6 exactly and takes step 7
+    check(ckpt_mod.all_steps(trainer.ckpt_dir) == [TRAIN_STEPS], "no checkpoint at step 6")
+    saved = ckpt_mod.restore(trainer.ckpt_dir, TRAIN_STEPS, map_location=device)
+    trainer2 = tr.Trainer(cfg, dataset, ext, workdir=workdir, device=device)
+    init = trainer2.init_state().model.state_dict()
+    moved = sum(not torch.equal(init[k], v) for k, v in state.model.state_dict().items())
+    print(f"[training] parameters changed by training: {moved} of {len(init)} tensors")
+    check(moved == len(init), "some parameters did not change")
+    restored = trainer2.restore_or_init()
+    check(restored.step == TRAIN_STEPS, "resume did not start at step 6")
+    for k, v in saved["model"].items():
+        check(torch.equal(restored.model.state_dict()[k], v), f"restored parameter {k} differs")
+    opt_saved, opt_now = saved["optimizer"]["state"], restored.optimizer.state_dict()["state"]
+    check(opt_saved.keys() == opt_now.keys() and all(
+        torch.equal(opt_saved[i][n], opt_now[i][n]) for i in opt_saved for n in ("exp_avg", "exp_avg_sq")),
+        "restored optimizer state differs")
+    state2 = trainer2.train(max_steps=TRAIN_STEPS + 1)
+    r7 = read_scalars(f"{workdir}/summaries")[-1]
+    check(state2.step == TRAIN_STEPS + 1 and r7["step"] == TRAIN_STEPS + 1, "resume did not take step 7")
+    print(f"[training] resumed from step {TRAIN_STEPS}: restored parameters and Adam moments equal "
+          f"the checkpoint; step 7 total {r7['total']:.5f}, grad_norm {r7['grad_norm']:.4f}, "
+          f"{r7['step_ms']:.2f} ms")
+    del trainer, trainer2, state, state2, restored, saved, init
+
+    # one fixed batch: no path drop, no dropout, fixed sampling noise
+    fixed_model_cfg = dataclasses.replace(
+        cfg.model, path_drop=dataclasses.replace(cfg.model.path_drop, enabled=False),
+        avod=dataclasses.replace(cfg.model.avod, keep_dropout_prob=1.0),
+    )
+    fixed_cfg = dataclasses.replace(cfg, model=fixed_model_cfg)
+    weights.init_like_flax(model, seed=0)
+    opt, sched = tr.build_optimizer(model.parameters(), fixed_cfg)
+    step = tr.make_train_step(model, opt, sched, anchors, fixed_cfg, ext)
+    g = torch.Generator(device=device).manual_seed(1)
+    noise = (torch.rand((BATCH, cfg.model.anchors.max_anchors), generator=g, device=device),
+             torch.rand((BATCH, cfg.model.rpn.train_nms_size), generator=g, device=device))
+    totals = [float(step(batch, g, noise)["total"]) for _ in range(FIXED_STEPS + 1)]
+    print(f"[training] fixed batch, {FIXED_STEPS} steps: total loss {totals[0]:.5f} before, "
+          f"{totals[-1]:.5f} after; trace " + " ".join(f"{t:.4f}" for t in totals))
+    check(totals[-1] < totals[0], "the loss on the fixed batch did not fall")
+    shutil.rmtree(workdir)
+    return res_a_bwd, res_c_bwd, launches
+
+
+def train_card_vs_cpu_phase() -> None:
+    """Phase 7: one training step of the narrow parity config (f32) on the
+    card and on the CPU, same weights, frames and sampling noise. Every
+    anchor enters the RPN's NMS and up to 256 proposals leave it, so the
+    stage-2 minibatch holds positives whatever order the random weights'
+    near-equal scores take (with 32 proposals of the top 256 it may hold
+    none, and the stage-2 box losses and their gradients are then 0)."""
+
+    model_cfg = parity_config()
+    model_cfg = dataclasses.replace(
+        model_cfg,
+        rpn=dataclasses.replace(model_cfg.rpn, train_nms_size=256,
+                                pre_nms_top_k=model_cfg.anchors.max_anchors),
+        path_drop=dataclasses.replace(model_cfg.path_drop, enabled=False),
+        avod=dataclasses.replace(model_cfg.avod, keep_dropout_prob=1.0),
+    )
+    cfg = train_config(model_cfg)
+    ext = AreaExtents(x_min=-8.0, x_max=8.0, z_min=0.0, z_max=12.4)
+    frames = train_frames(model_cfg, ext, (2, 3), 1024)
+    g = torch.Generator().manual_seed(2)
+    noise = (torch.rand((2, model_cfg.anchors.max_anchors), generator=g),
+             torch.rand((2, model_cfg.rpn.train_nms_size), generator=g))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = pl.make_model(model_cfg, ext, device=dev).float()
+        weights.init_like_flax(model, seed=0)
+        batch = pl.stack_frames(frames, device=dev)
+        out = pl.forward_batch_fn(model, batch, pl.static_anchor_grid(model_cfg, ext, device=dev),
+                                  model_cfg, ext, train=True)
+        losses = pl.loss_batch(out, batch, model_cfg, ext, noise=tuple(n.to(dev) for n in noise))
+        losses["total"].backward()
+        runs[dev] = ({k: v.item() for k, v in losses.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (gl, gg), (cl, cg) = runs["cuda"], runs["cpu"]
+    worst = max(abs(gl[k] - cl[k]) for k in cl)
+    print(f"  training card vs CPU: loss terms max abs diff {worst:.3e} (tol 1e-4); total "
+          f"{gl['total']:.6f} vs {cl['total']:.6f}; num_rpn_pos {gl['num_rpn_pos']:.1f}, "
+          f"num_s2_pos {gl['num_s2_pos']:.1f}")
+    check(worst <= 1e-4, f"training card vs cpu: losses differ by {worst:.3e}")
+    check(cl["num_s2_pos"] > 0 and gl["num_s2_pos"] > 0 and cl["reg"] > 0,
+          "training card vs cpu: no stage-2 positives, the positive branch is not compared")
+    rel = max((gg[n] - cg[n]).abs().max().item() / max(cg[n].abs().max().item(), 1e-8) for n in cg)
+    print(f"  training card vs CPU: every parameter's gradient within {rel:.3e} of its largest "
+          f"CPU gradient (tol 1e-4: f32 sums in other orders, atomics in kernels A and C-bwd)")
+    check(rel <= 1e-4, f"training card vs cpu: gradients differ by {rel:.3e} relative")
+
+
 def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -752,7 +1160,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
     profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)))
 
     # 4. the ELL path (kernel B): request 0's 8 frames, one launch per direction
-    exact_a = [sparse_pool.sparse_pool_patch_plain(*args[:5], True) for args in a_calls]
+    exact_a = [sparse_pool.sparse_pool_patch_plain(*args[:5], True)[0] for args in a_calls]
     reset_counts()
     outs = [ell_sparse_pool.sparse_pool_ell_batch(src, idx, w) for _, src, idx, w in b_dirs]
     torch.cuda.synchronize()
@@ -773,6 +1181,16 @@ def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
     # 5. end to end on the card against the CPU at the narrow parity config
     print("[card vs CPU]")
     card_vs_cpu_phase()
+    del model, requests
+
+    # 6. training at full width: backward kernels, Trainer, resume, fixed batch
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    res_a_bwd, res_c_bwd, train_launches = training_phase(device, flush)
+    del flush
+
+    # 7. one training step on the card against the CPU
+    print("[training card vs CPU]")
+    train_card_vs_cpu_phase()
 
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
@@ -781,6 +1199,11 @@ def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
          "sparse_pooling_tpu/ops/pallas_sparse_pool.py:70", launches_b, res_b),
         ("group_crop", "sparse_pooling_tpu_torch/csrc/group_crop.cu",
          "tools/probe_pallas_roi.py:121", launches_c, res_c),
+        # the backwards: launches over the Trainer's 6 steps
+        ("sparse_pool_patch_bwd", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
+         "sparse_pooling_tpu/ops/sparse_pool.py:196", train_launches["A-bwd"], res_a_bwd),
+        ("group_crop_bwd", "sparse_pooling_tpu_torch/csrc/group_crop.cu",
+         "sparse_pooling_tpu/ops/crop_resize.py:789", train_launches["C-bwd"], res_c_bwd),
     ]
     print("[ell one frame] " + json.dumps({"replaces": "sparse_pooling_tpu/ops/pallas_sparse_pool.py:70",
                                            **one_frame}))
@@ -792,7 +1215,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
     # ms, plain_ms and library_ms: as the caller sees a call; device_ms,
     # cold_ms and library_device_ms: device work; host_us and
     # library_host_us: host enqueue. Each sums the kernel's two calls (B: its
-    # two directions at batch 8, the ELL path's calls).
+    # two directions at batch 8, the ELL path's calls; A-bwd and C-bwd: the
+    # two calls of one training step).
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -817,4 +1241,5 @@ if __name__ == "__main__":
     parser.add_argument("--ell-baseline", metavar="CU", default=None,
                         help="also time this kernel B source with the one-frame C interface "
                              "(the kernel before the batched redesign) on the same work")
-    sys.exit(main(ell_baseline=parser.parse_args().ell_baseline))
+    args = parser.parse_args()
+    sys.exit(main(ell_baseline=args.ell_baseline))

@@ -218,6 +218,233 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- C-bwd
+//
+// The image gradient of the crop, the window transpose of the reference's
+// `_group_feature_grad` (crop_resize.py:789-834): sample (v, i, k) of unit
+// (b, p) adds wy_j * (wx_l * g[b, p, v, i, k, c]) to window cell (j, l) of
+// the unit's window at (y0, x0), for the two taps j, l of each axis whose tent
+// weight is non-zero; neighbouring units' windows overlap. The box gradient
+// is not computed (the RPN's anchor boxes take none).
+//
+// Design: a block takes U units (4 on the main path, as many as fit 48 KB).
+// (1) the units' output gradients go to shared memory with 16-byte loads;
+// (2) the forward's coordinates and window starts in shared memory; (3) each
+// unit's py x px x C window gradient in f32 shared memory, zeroed; (4) a
+// thread per unit sorts its sample rows (v, i) by their first y tap; then a
+// thread per (unit, window row, 4 channels) walks the sample rows whose y
+// taps include its row and adds their samples into its own row with 16-byte
+// shared loads and stores. No two threads write one cell, so no shared
+// atomics: a first version gave each sample a thread and 32 shared atomics,
+// which the variants' common cells serialised (315-382 us a view on an
+// NVIDIA H100 80GB HBM3 at 700 W, against 83-99 us for this design). (5)
+// The block adds its windows' non-zero cells into an f32 [B, H, W, C]
+// buffer (zeroed first) with global atomics, 16 bytes each where C = 8;
+// (6) for a bf16 image one pass rounds the buffer once to bf16 (an f32
+// image's gradient is the buffer itself). Sums meet by atomics, so their
+// order varies from run to run (f32 rounding). The reference sums a bf16
+// map's gradient in bf16 (`_acc_dtype`, crop_resize.py:117-129); this
+// kernel sums in f32 and rounds once.
+//
+// Bound on an H100: bytes. At the main path's shapes (4096 units of V = 32,
+// 3 x 3 samples, C = 8 bf16 a view) a call reads 18.9 MB of output gradient
+// and writes the [B, H, W, C] image gradient once.
+
+// dst[0..N) += wy * (wx * g[0..N)), one vector load and store of N floats.
+template <int N>
+__device__ __forceinline__ void add_scaled(float* dst, float wy, float wx, const float (&g)[N]) {
+  float a[N];
+  spt::load_f32<float, N>(dst, a);
+#pragma unroll
+  for (int n = 0; n < N; ++n) a[n] = a[n] + wy * (wx * g[n]);
+  spt::store_from_f32<float, N>(dst, a);
+}
+
+// Shared memory of C-bwd for U units: the f32 windows, the units' output
+// gradients, then coordinates, starts and the row sort; each part from a
+// 16-byte boundary.
+struct BwdSmem {
+  int grads, coords, total;
+};
+__host__ __device__ __forceinline__ int round16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ BwdSmem bwd_smem(int U, int py, int px, int C, int V, int CH,
+                                                     int CW, int t_size) {
+  BwdSmem m;
+  m.grads = round16(U * py * px * C * (int)sizeof(float));
+  m.coords = m.grads + round16(U * V * CH * CW * C * t_size);
+  m.total = m.coords + (int)sizeof(float) * U * V * (CH + CW) +
+            (int)sizeof(int) * U * (2 + V * CH + py + 1);
+  return m;
+}
+
+template <typename T, int CV>
+__global__ void __launch_bounds__(kThreads)
+group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __restrict__ boxes,
+               int units, int P, int V, int CH, int CW, int patch, int U,
+               float* __restrict__ acc) {
+  const int C = CV > 0 ? CV : c_rt;
+  const int py = min(patch, H), px = min(patch, W);
+  const int win = py * px * C;
+  const int S = V * CH * CW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdSmem sm = bwd_smem(U, py, px, C, V, CH, CW, (int)sizeof(T));
+  float* windows = reinterpret_cast<float*>(smem);                // [U, py, px, C]
+  T* gst = reinterpret_cast<T*>(smem + sm.grads);                 // [U, S, C]
+  float* ys = reinterpret_cast<float*>(smem + sm.coords);          // [U, V, CH]
+  float* xs = ys + U * V * CH;                                     // [U, V, CW]
+  int* starts = reinterpret_cast<int*>(xs + U * V * CW);           // [U, 2]
+  int* by_row = starts + 2 * U;                                    // [U, V * CH]
+  int* row_off = by_row + U * V * CH;                              // [U, py + 1]
+
+  const int unit0 = blockIdx.x * U;
+  const int nu = min(U, units - unit0);
+
+  // the units' gradients to shared memory: 16-byte loads where C = 8
+  const T* g0 = g + (size_t)unit0 * S * C;
+  if constexpr (CV > 0) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+    for (int e = threadIdx.x; e < nu * S * CV / kPer; e += blockDim.x)
+      reinterpret_cast<uint4*>(gst)[e] = reinterpret_cast<const uint4*>(g0)[e];
+  } else {
+    for (int e = threadIdx.x; e < nu * S * C; e += blockDim.x) gst[e] = g0[e];
+  }
+  for (int t = threadIdx.x; t < nu * V; t += blockDim.x) {
+    const float* q = boxes + ((size_t)unit0 * V + t) * 4;
+    sample_coords(q[0], q[2], CH, H, ys + t * CH);
+    sample_coords(q[1], q[3], CW, W, xs + t * CW);
+  }
+  for (int e = threadIdx.x; e < nu * win; e += blockDim.x) windows[e] = 0.0f;
+  for (int e = threadIdx.x; e < nu * (py + 1); e += blockDim.x) row_off[e] = 0;
+  __syncthreads();
+
+  for (int u = threadIdx.x; u < nu; u += blockDim.x) {
+    const float* yu = ys + u * V * CH;
+    const float* xu = xs + u * V * CW;
+    float sy = 0.0f, sx = 0.0f;
+    for (int v = 0; v < V; ++v) {
+      sy = sy + (yu[v * CH] + yu[v * CH + CH - 1]);
+      sx = sx + (xu[v * CW] + xu[v * CW + CW - 1]);
+    }
+    const float y_mid = 0.5f * (sy / (float)V);
+    const float x_mid = 0.5f * (sx / (float)V);
+    const float half = (float)(patch - 2) / 2.0f;
+    const int y0 = starts[2 * u] = min(max((int)floorf(y_mid - half), 0), max(H - patch, 0));
+    starts[2 * u + 1] = min(max((int)floorf(x_mid - half), 0), max(W - patch, 0));
+    // the unit's sample rows (v, i) sorted by their first y tap j0 (a counting
+    // sort, stable in (v, i) order): row_off[j] .. row_off[j + 1] of by_row
+    int* off = row_off + u * (py + 1);
+    int* order = by_row + u * V * CH;
+    const auto j0_of = [&](int vi) {
+      return min((int)floorf(fminf(fmaxf(yu[vi] - (float)y0, 0.0f), (float)py - 1.0f)), py - 1);
+    };
+    for (int vi = 0; vi < V * CH; ++vi) ++off[1 + j0_of(vi)];
+    for (int j = 1; j <= py; ++j) off[j] += off[j - 1];
+    for (int vi = 0; vi < V * CH; ++vi) order[off[j0_of(vi)]++] = vi;
+    for (int j = py; j > 0; --j) off[j] = off[j - 1];
+    off[0] = 0;
+  }
+  __syncthreads();
+
+  // each thread owns one window row j and W channels of a unit and sums
+  // into that row the samples whose y taps include j: the rows (v, i) with
+  // j0 = j and with j0 = j - 1. No two threads add into one cell: no atomics.
+  constexpr int Wc = CV > 0 && CV % 4 == 0 ? 4 : 1;  // 16-byte row updates where C = 8
+  const int groups = C / Wc;
+  const int y_items = py * groups;
+  for (int t = threadIdx.x; t < nu * y_items; t += blockDim.x) {
+    const int u = t / y_items;
+    const int j = (t - u * y_items) / groups;
+    const int c = (t - u * y_items - j * groups) * Wc;
+    const float y0 = (float)starts[2 * u], x0 = (float)starts[2 * u + 1];
+    const float* yu = ys + u * V * CH;
+    const float* xu = xs + u * V * CW;
+    const T* gu = gst + (size_t)u * S * C + c;
+    const int* order = by_row + u * V * CH;
+    const int* off = row_off + u * (py + 1);
+    float* row = windows + (size_t)u * win + j * px * C + c;
+    for (int q = off[max(j - 1, 0)]; q < off[j + 1]; ++q) {
+      const int vi = order[q];  // v * CH + i
+      const float ry = fminf(fmaxf(yu[vi] - y0, 0.0f), (float)py - 1.0f);
+      // the tap j of this row: tent(ry - j) is its weight whether j is the
+      // row's j0 or j0 + 1 (0 at j0 + 1 where j0 is the last row)
+      const float wy = tent(ry - (float)j);
+      if (wy == 0.0f) continue;
+      const float* xv = xu + (vi / CH) * CW;
+      for (int k = 0; k < CW; ++k) {
+        const float rx = fminf(fmaxf(xv[k] - x0, 0.0f), (float)px - 1.0f);
+        const int l0 = min((int)floorf(rx), px - 1);
+        const int l1 = min(l0 + 1, px - 1);
+        float gv[Wc];
+        spt::load_f32<T, Wc>(gu + (size_t)(vi * CW + k) * C, gv);
+        add_scaled<Wc>(row + l0 * C, wy, tent(rx - (float)l0), gv);
+        if (l1 > l0) add_scaled<Wc>(row + l1 * C, wy, tent(rx - (float)l1), gv);
+      }
+    }
+  }
+  __syncthreads();
+
+  const int row_len = px * C;
+  if constexpr (CV > 0 && CV % 4 == 0) {
+    // 16-byte vector reductions (sm_90): a quarter of the global atomics
+    const int win4 = win / 4, row4 = row_len / 4;
+    for (int e = threadIdx.x; e < nu * win4; e += blockDim.x) {
+      const float4 val = reinterpret_cast<const float4*>(windows)[e];
+      if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
+      const int u = e / win4;
+      const int rem = e - u * win4;
+      const int r = rem / row4;
+      const int b = (unit0 + u) / P;
+      float* row = acc + (((size_t)b * H + starts[2 * u] + r) * W + starts[2 * u + 1]) * CV;
+      atomicAdd(reinterpret_cast<float4*>(row) + (rem - r * row4), val);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nu * win; e += blockDim.x) {
+      const float val = windows[e];
+      if (val == 0.0f) continue;
+      const int u = e / win;
+      const int rem = e - u * win;
+      const int r = rem / row_len;
+      const int b = (unit0 + u) / P;
+      atomicAdd(acc + ((size_t)b * H + starts[2 * u] + r) * W * C + (size_t)starts[2 * u + 1] * C +
+                    (rem - r * row_len),
+                val);
+    }
+  }
+}
+
+__global__ void round_to_bf16(const float* __restrict__ acc, long long n,
+                              __nv_bfloat16* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(acc[i]);
+}
+
+template <typename T>
+int launch_bwd(const void* g_v, int B, int H, int W, int C, const float* boxes, int P, int V,
+               int CH, int CW, int patch, float* acc, cudaStream_t stream) {
+  const T* g = static_cast<const T*>(g_v);
+  const int units = B * P;
+  const int S = V * CH * CW;
+  const int py = patch < H ? patch : H;
+  const int px = patch < W ? patch : W;
+  const int t_size = (int)sizeof(T);
+  if (bwd_smem(1, py, px, C, V, CH, CW, t_size).total > kSmemBytes)
+    return (int)cudaErrorInvalidValue;  // one unit must fit
+  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(float) * (size_t)B * H * W * C, stream);
+  if (err != cudaSuccess || units == 0 || S == 0) return (int)err;
+  int U = kSamplesPerBlock / S;
+  U = U < 1 ? 1 : (U > kMaxUnits ? kMaxUnits : U);
+  while (U > 1 && bwd_smem(U, py, px, C, V, CH, CW, t_size).total > kSmemBytes) --U;
+  const unsigned blocks = (unsigned)((units + U - 1) / U);
+  const size_t smem = (size_t)bwd_smem(U, py, px, C, V, CH, CW, t_size).total;
+  if (C == 8 && spt::aligned(g, 16))
+    group_crop_bwd<T, 8><<<blocks, kThreads, smem, stream>>>(g, H, W, C, boxes, units, P, V, CH,
+                                                             CW, patch, U, acc);
+  else
+    group_crop_bwd<T, 0><<<blocks, kThreads, smem, stream>>>(g, H, W, C, boxes, units, P, V, CH,
+                                                             CW, patch, U, acc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (img and out share it). boxes [B, P, V, 4]
@@ -230,4 +457,23 @@ extern "C" int group_crop_launch(const void* img, int dtype, int B, int H, int W
   if (dtype == 1)
     return launch<__nv_bfloat16>(img, B, H, W, C, boxes, P, V, CH, CW, patch, out, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// g: [B, P, V, CH, CW, C] gradient of the crop in dtype (0 = float32,
+// 1 = bfloat16); boxes as the forward's; acc: [B, H, W, C] f32 scratch, the
+// gradient itself for float32; out: [B, H, W, C] bfloat16 for dtype 1 (the
+// rounded acc), unused for float32.
+extern "C" int group_crop_bwd_launch(const void* g, int dtype, int B, int H, int W, int C,
+                                     const float* boxes, int P, int V, int CH, int CW, int patch,
+                                     float* acc, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int rc = launch_bwd<__nv_bfloat16>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, s);
+  if (rc != 0) return rc;
+  const long long n = (long long)B * H * W * C;
+  if (n == 0) return 0;
+  round_to_bf16<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      acc, n, static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
 }

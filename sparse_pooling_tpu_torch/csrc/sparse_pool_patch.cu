@@ -220,13 +220,15 @@ __global__ void __launch_bounds__(kScanThreads) patch_pool_scan(Scratch s, int n
 // Also writes the empty target rows' zeros: a warp per 32 rows.
 __global__ void patch_pool_place(const int* __restrict__ rows, const int* __restrict__ cols,
                                  const float* __restrict__ vals, int B, int P, int Hs, int Ws,
-                                 int Tn, int C, Scratch s, float* __restrict__ out) {
+                                 int Tn, int C, Scratch s, float* __restrict__ out,
+                                 float* __restrict__ den_out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long n_rows = (long long)B * Tn;
   const long long row0 = (i >> 5) * 32;
   if (row0 < n_rows) {
     const long long mine = row0 + (threadIdx.x & 31);
     const unsigned empty = __ballot_sync(kFull, mine < n_rows && s.hist[mine] == 0);
+    if (den_out != nullptr && (empty >> (threadIdx.x & 31) & 1)) den_out[mine] = 0.0f;
     float* dst = out + row0 * C;
     if (C % 4 == 0 && spt::aligned(out, 16)) {
       const int c4 = C / 4;
@@ -255,11 +257,13 @@ __global__ void patch_pool_place(const int* __restrict__ rows, const int* __rest
 // One block per kSlots slots; sub-groups of S lanes walk S slots each, W
 // channels a lane, S * W channels a pass. Six blocks fit an SM (<= 80
 // registers, < 37 KB of shared memory), so the main path's ~700 live blocks
-// run in one wave on an H100's 132 SMs.
-template <typename T, int W, int S>
+// run in one wave on an H100's 132 SMs. The output is O: f32 for the
+// forward, the source map's type for A-bwd. OneTap (A-bwd) reads one row a
+// slot, weighted by the slot's first weight, for the forward's four taps.
+template <typename T, typename O, int W, int S, bool OneTap>
 __global__ void __launch_bounds__(kSlots, 6)
 patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, int with_den,
-                  float* __restrict__ out) {
+                  O* __restrict__ out, float* __restrict__ den_out) {
   constexpr int kPass = S * W;
   constexpr int kVec = W > 1 ? 4 : 1;  // channels a thread writes (C % 8 == 0 then)
   __shared__ float runbuf[kSlots][kPass + 1];  // + the weight sum
@@ -352,7 +356,12 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
       }
       const float4 x = w_s[q];
       den = den + (((x.x + x.y) + x.z) + x.w);
-      if (c < C) {
+      if (c < C && OneTap) {
+        float t00[W];
+        spt::load_f32<T, W>(src + (long long)pix_s[q] * C + c, t00);
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[j] = acc[j] + t00[j] * x.x;
+      } else if (c < C) {
         float t00[W], t01[W], t10[W], t11[W];
         const T* p = src + (long long)pix_s[q] * C + c;
         spt::load_f32<T, W>(p, t00);
@@ -385,7 +394,8 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
       if (side < 0) {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) v[j] = finish(v[j], d, with_den);
-        spt::store_from_f32<float, kVec>(out + (long long)run_row[r] * C + c0 + ch, v);
+        spt::store_from_f32<O, kVec>(out + (long long)run_row[r] * C + c0 + ch, v);
+        if (den_out != nullptr && c0 + ch == 0) den_out[run_row[r]] = d;
       } else {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) carry[side * (C + 1) + c0 + ch + j] = v[j];
@@ -419,23 +429,25 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
         v = v + __ldcg(cb + 2 * k * stride + c);
         d = d + __ldcg(cb + 2 * k * stride + C);
       }
-      out[(long long)(side == 0 ? first_row : last_row) * C + c] = finish(v, d, with_den);
+      out[(long long)(side == 0 ? first_row : last_row) * C + c] =
+          spt::from_f32<O>(finish(v, d, with_den));
+      if (den_out != nullptr && c == 0) den_out[side == 0 ? first_row : last_row] = d;
     }
   }
 }
 
-template <typename T, int W, int S>
+template <typename T, typename O, int W, int S, bool OneTap = false>
 cudaError_t gather(const T* src, int Hs, int Ws, int C, const Scratch& s, long long n_blocks,
-                   int with_den, float* out, cudaStream_t stream) {
-  patch_pool_gather<T, W, S><<<(unsigned)n_blocks, kSlots, 0, stream>>>(src, Hs, Ws, C, s,
-                                                                       with_den, out);
+                   int with_den, O* out, float* den_out, cudaStream_t stream) {
+  patch_pool_gather<T, O, W, S, OneTap><<<(unsigned)n_blocks, kSlots, 0, stream>>>(
+      src, Hs, Ws, C, s, with_den, out, den_out);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, const int* cols,
            const float* vals, int P, int Tn, int with_den, int* scratch, float* out,
-           cudaStream_t stream) {
+           float* den_out, cudaStream_t stream) {
   const T* src = static_cast<const T*>(src_v);
   const long long n_rows = (long long)B * Tn;
   const long long n_pts = (long long)B * P;
@@ -443,7 +455,13 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
   const Scratch::Sizes z = Scratch::sizes(n_rows, n_pts);
   const Scratch s(scratch, n_rows, n_pts);
 
-  if (n_pts == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * n_rows * C, stream);
+  if (n_pts == 0) {
+    if (den_out != nullptr) {
+      const cudaError_t e = cudaMemsetAsync(den_out, 0, sizeof(float) * n_rows, stream);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * n_rows * C, stream);
+  }
   cudaError_t err = cudaMemsetAsync(
       s.hist, 0, sizeof(int) * (z.n_pad + 4 + round_up(z.n_blocks, 4)), stream);
   if (err != cudaSuccess) return (int)err;
@@ -456,14 +474,131 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
   // a thread per point, and a warp per 32 target rows
   const long long place_blocks = max(pt_blocks, (n_rows + kThreads - 1) / kThreads);
   patch_pool_place<<<(unsigned)place_blocks, kThreads, 0, stream>>>(rows, cols, vals, B, P, Hs,
-                                                                    Ws, Tn, C, s, out);
+                                                                    Ws, Tn, C, s, out, den_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // the vector form also stores 4 channels at once: out must be 16-byte aligned
   if (C % 8 == 0 && spt::aligned(src, 16) && spt::aligned(out, 16))
-    err = gather<T, 8, 8>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, stream);
+    err = gather<T, float, 8, 8>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
   else
-    err = gather<T, 1, 32>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, stream);
+    err = gather<T, float, 1, 32>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
   return (int)err;
+}
+
+// ---------------------------------------------------------------- A-bwd
+//
+// The source gradient of the pool, the forward's transpose: every live
+// corner entry (p, k) adds vals[p,k] * g[row_p] (divided by den[row_p] where
+// the forward divided) to source cell cols[p,k]:
+//
+//   g_src[b*Hs*Ws + cols[b,p,k], c] += vals[b,p,k] / den[b*T + rows[b,p]]
+//                                      * g[b*T + rows[b,p], c]
+//
+// with the division's gradient 0 where den <= 1e-12, as in the reference's
+// `_patch_pool_denom_with_vjp.bwd` (sparse_pool.py:196-221, the quotient
+// differentiated outside it, :319-326), keyed by cols[..., k] itself. Flat ids
+// outside the batch add nothing.
+//
+// Bound on an H100: bytes. At the main path's shapes (B = 8, 16384 points a
+// frame, C = 64, bf16 source maps) a call reads the distinct live rows of g
+// (f32, 4-6 MB), the point tables (4.5 MB) and writes the bf16 source
+// gradient (7.7 / 9.0 MB): 5 us at 3.35 TB/s.
+//
+// Design: the forward's machinery, keyed by source cell. A scatter of 4P
+// entries into the source map becomes a gather with no atomics on features:
+// (1) count the live entries (a non-zero weight, both ids in range, a row
+// with den > 1e-12) per source cell, keeping each entry's rank; (2) the
+// forward's two-level scan of the counts; (3) place each entry's target row
+// and weight over its row's weight sum at offs[cell] + rank, a warp per 32
+// cells writing the unreached cells' zeros; (4) the forward's gather, which
+// splits the work by entries, not by cells (at the main path's inputs one
+// BEV cell takes 1133 entries, the mean is 14), reading one f32 row of g per
+// entry (its one tap), writing each cell once in the source dtype. A
+// first version gave each cell a warp: its gather took 246 us for the BEV
+// map on an NVIDIA H100 80GB HBM3 at 700 W, held by the one warp of the
+// 1133-entry cell (this design's: 48 us).
+
+__global__ void patch_pool_bwd_count(const int* __restrict__ rows, const int* __restrict__ cols,
+                                     const float* __restrict__ vals,
+                                     const float* __restrict__ den, int B, int P, int Tn,
+                                     int n_src, Scratch s) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= 4LL * B * P) return;
+  const long long i = e >> 2;
+  const long long b = i / P;
+  const long long row = b * Tn + rows[i];
+  const long long cell = b * n_src + cols[e];
+  bool live = vals[e] != 0.0f && row >= 0 && row < (long long)B * Tn && cell >= 0 &&
+              cell < (long long)B * n_src;
+  if (live && den != nullptr) live = den[row] > 1e-12f;
+  s.rank[e] = live ? atomicAdd(s.hist + cell, 1) : -1;
+}
+
+// Also writes the unreached cells' zeros: a warp per 32 cells.
+template <typename O>
+__global__ void patch_pool_bwd_place(const int* __restrict__ rows, const int* __restrict__ cols,
+                                     const float* __restrict__ vals,
+                                     const float* __restrict__ den, int B, int P, int Tn,
+                                     int n_src, int C, Scratch s, O* __restrict__ out) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long n_cells = (long long)B * n_src;
+  const long long cell0 = (e >> 5) * 32;
+  if (cell0 < n_cells) {
+    const long long mine = cell0 + (threadIdx.x & 31);
+    const unsigned empty = __ballot_sync(kFull, mine < n_cells && s.hist[mine] == 0);
+    O* dst = out + cell0 * C;
+    constexpr int kPer = 16 / (int)sizeof(O);  // values per 16-byte store
+    if (C % kPer == 0 && spt::aligned(out, 16)) {
+      const int cv = C / kPer;
+      for (int k = threadIdx.x & 31; k < 32 * cv; k += 32)
+        if (empty >> (k / cv) & 1) reinterpret_cast<uint4*>(dst)[k] = make_uint4(0, 0, 0, 0);
+    } else {
+      for (int k = threadIdx.x & 31; k < 32 * C; k += 32)
+        if (empty >> (k / C) & 1) dst[k] = spt::from_f32<O>(0.0f);
+    }
+  }
+  if (e >= 4LL * B * P) return;
+  const int r = s.rank[e];
+  if (r < 0) return;
+  const long long i = e >> 2;
+  const long long b = i / P;
+  const long long row = b * Tn + rows[i];
+  const long long at = slot_of(s, b * n_src + cols[e]) + r;
+  s.slot_row[at] = (int)(b * n_src + cols[e]);
+  s.slot_pix[at] = (int)row;
+  s.slot_w[at] = make_float4(den != nullptr ? vals[e] / den[row] : vals[e], 0.0f, 0.0f, 0.0f);
+}
+
+template <typename O>
+int launch_bwd(const float* g, const float* den, int B, int Tn, int C, const int* rows,
+               const int* cols, const float* vals, int P, int Hs, int Ws, int* scratch,
+               void* out_v, cudaStream_t stream) {
+  O* out = static_cast<O*>(out_v);
+  const long long n_src = (long long)Hs * Ws;
+  const long long n_cells = (long long)B * n_src;
+  const long long n_ent = 4LL * B * P;
+  if (n_cells == 0 || C == 0) return 0;
+  if (n_ent == 0) return (int)cudaMemsetAsync(out, 0, sizeof(O) * n_cells * C, stream);
+  const Scratch::Sizes z = Scratch::sizes(n_cells, n_ent);
+  const Scratch s(scratch, n_cells, n_ent);
+  cudaError_t err = cudaMemsetAsync(
+      s.hist, 0, sizeof(int) * (z.n_pad + 4 + round_up(z.n_blocks, 4)), stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long ent_blocks = (n_ent + kThreads - 1) / kThreads;
+  patch_pool_bwd_count<<<(unsigned)ent_blocks, kThreads, 0, stream>>>(rows, cols, vals, den, B, P,
+                                                                      Tn, (int)n_src, s);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int n_tiles = (int)(z.n_pad / kScanTile);
+  patch_pool_scan<<<n_tiles, kScanThreads, 0, stream>>>(s, n_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // a thread per entry, and a warp per 32 cells
+  const long long place_blocks = max(ent_blocks, (n_cells + kThreads - 1) / kThreads);
+  patch_pool_bwd_place<O><<<(unsigned)place_blocks, kThreads, 0, stream>>>(
+      rows, cols, vals, den, B, P, Tn, (int)n_src, C, s, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // the forward's gather with g as the source, one row a slot
+  if (C % 8 == 0 && spt::aligned(g, 16) && spt::aligned(out, 16))
+    return (int)gather<float, O, 8, 8, true>(g, 1, 1, C, s, z.n_blocks, 0, out, nullptr, stream);
+  return (int)gather<float, O, 1, 32, true>(g, 1, 1, C, s, z.n_blocks, 0, out, nullptr, stream);
 }
 
 }  // namespace
@@ -474,17 +609,43 @@ extern "C" long long sparse_pool_patch_scratch_ints(int B, int P, int Tn, int C)
 }
 
 // dtype: 0 = float32 source, 1 = bfloat16 source. scratch: the int32 buffer
-// above; out: [B*T, C] f32.
+// above; out: [B*T, C] f32; den: [B*T] f32 weight sums, or null (written only
+// with with_den).
 extern "C" int sparse_pool_patch_launch(const void* src, int dtype, int B, int Hs, int Ws,
                                         int C, const int* rows, const int* cols,
                                         const float* vals, int P, int Tn, int with_den,
-                                        int* scratch, float* out, void* stream) {
+                                        int* scratch, float* out, float* den, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!spt::aligned(scratch, 16)) return (int)cudaErrorMisalignedAddress;
+  float* den_out = with_den ? den : nullptr;
+  if (dtype == 0)
+    return launch<float>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch, out,
+                         den_out, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch,
+                                 out, den_out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int32 scratch of A-bwd: the forward's Scratch keyed by source cell
+// (B * Hs * Ws rows) over the 4 * B * P corner entries.
+extern "C" long long sparse_pool_patch_bwd_scratch_ints(int B, int P, int n_src, int C) {
+  return Scratch::ints((long long)B * n_src, 4LL * B * P, C);
+}
+
+// g: [B*T, C] f32 gradient of the pooled output; den: [B*T] f32 weight sums
+// of the forward, or null where it did not divide; out: [B, Hs, Ws, C] in
+// dtype (0 = float32, 1 = bfloat16).
+extern "C" int sparse_pool_patch_bwd_launch(const float* g, const float* den, int B, int Tn,
+                                            int C, const int* rows, const int* cols,
+                                            const float* vals, int P, int Hs, int Ws, int dtype,
+                                            int* scratch, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!spt::aligned(scratch, 16)) return (int)cudaErrorMisalignedAddress;
   if (dtype == 0)
-    return launch<float>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch, out, s);
+    return launch_bwd<float>(g, den, B, Tn, C, rows, cols, vals, P, Hs, Ws, scratch, out, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch,
-                                 out, s);
+    return launch_bwd<__nv_bfloat16>(g, den, B, Tn, C, rows, cols, vals, P, Hs, Ws, scratch, out,
+                                     s);
   return (int)cudaErrorInvalidValue;
 }

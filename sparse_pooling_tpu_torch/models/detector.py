@@ -1,8 +1,12 @@
-"""The SHPL fusion detector, inference path: two VGG-pyramid branches with
-SHPL fusion both ways, the crop-based RPN with top-k + greedy NMS, the
-stage-2 head on exact 7x7 crops, and the decode with per-class BEV NMS.
+"""The SHPL fusion detector: two VGG-pyramid branches with SHPL fusion both
+ways, the crop-based RPN with top-k + greedy NMS, the stage-2 head on exact
+7x7 crops, and the decode with per-class BEV NMS.
 
-Port of ``sparse_pooling_tpu.models.detector`` (eval only). Every tensor
+Port of ``sparse_pooling_tpu.models.detector``, eval and train: training
+keeps ``train_nms_size`` proposals, detaches them where
+``avod.stop_gradient_proposals``, and drops stage-2 FC activations with
+``avod.keep_dropout_prob`` (a mask drawn from the caller's generator, scaled
+by 1 / keep, as flax's ``nn.Dropout``). Every tensor
 carries a leading batch dim; feature maps are NHWC. Implemented options are
 the ones the cars preset runs (quad-filtered or per-position grouped RPN
 crops on strided maps; exact stage-2 crops; early fusion; box_4c; the flip
@@ -13,7 +17,7 @@ head or the angle vector); the others raise
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -73,21 +77,24 @@ class Stage2Head(nn.Module):
         if flip_head:
             self.flip = Dense(widths[-1], 2)
 
-    def forward(self, roi_views, denom):
+    def forward(self, roi_views, denom, keep_prob: float = 1.0, generator=None):
         """roi_views: per-view [B, P, S, S, C]; denom [B, 1, 1] kept-branch
-        count."""
+        count; ``keep_prob`` < 1 applies dropout after each FC."""
 
         b, p = roi_views[0].shape[:2]
         views = [v.reshape(b, p, -1) for v in roi_views]
         x = views[0] if len(views) == 1 else sum(views) / denom
         for i in range(self.n_fc):
             x = torch.relu(getattr(self, f"fc{i + 1}")(x))
+            if keep_prob < 1.0:
+                keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+                x = torch.where(keep, x / keep_prob, 0.0)
         flip = self.flip(x) if hasattr(self, "flip") else None
         return self.cls(x), self.box_reg(x), self.orientation(x), flip
 
 
 class SparsePoolingDetector(nn.Module):
-    """Batch-native two-branch fusion detector (inference)."""
+    """Batch-native two-branch fusion detector."""
 
     def __init__(self, cfg: ModelConfig, extents: AreaExtents = AreaExtents()):
         super().__init__()
@@ -154,10 +161,12 @@ class SparsePoolingDetector(nn.Module):
         )
         return rois.reshape(b, a, s, s, rois.shape[-1])
 
-    def forward(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def forward(self, inputs: Dict[str, Any], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """inputs (leading batch dim B): bev_input, bev_pre_packed, image
         [B, Hi, Wi, 3] f32, m_bev / m_fv DeviceCoo, p2 [B, 3, 4], anchors
-        [B, A, 8], anchor_valid [B, A], path_keep [B, 2]."""
+        [B, A, 8], anchor_valid [B, A], path_keep [B, 2]. ``train`` selects
+        the training proposals and dropout (masks from ``generator``)."""
 
         c = self.cfg
         ext = self.extents
@@ -218,12 +227,16 @@ class SparsePoolingDetector(nn.Module):
         scores_all = torch.softmax(objectness, dim=-1)[..., 1]
         scores_all = torch.where(anchor_valid, scores_all, -torch.inf)
         prop_bev_all = projection.project_to_bev(proposals_all, ext)
+        # the selection passes no gradient: NMS runs on detached copies
         sel = top_k_nms_batch(
-            prop_bev_all, scores_all, c.rpn.eval_nms_size,
+            prop_bev_all.detach(), scores_all.detach(),
+            c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
             iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
         )
         proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
         proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+        if c.avod.stop_gradient_proposals:
+            proposals = proposals.detach()
 
         # stage 2: exact crops on the decode-stride maps
         prop_bev = projection.project_to_bev(proposals, ext)
@@ -236,7 +249,8 @@ class SparsePoolingDetector(nn.Module):
         bev_rois2 = crop_and_resize_px_batch(bev_feat, to_feat(prop_bev * bev_px_scale), (s2, s2))
         img_rois2 = crop_and_resize_px_batch(img_feat, to_feat(prop_img * img_px_scale), (s2, s2))
         cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
-            [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0]
+            [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
+            keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
         )
         extra = {} if flip_logits is None else {"flip_logits": flip_logits}
         return {

@@ -1,5 +1,6 @@
 """SHPL fusion layer: pool the other branch's mid features onto this
-branch's lattice (kernel A on the card), concatenate, mix with a 1x1 conv.
+branch's lattice (kernel A on the card, its gradient kernel A-bwd),
+concatenate, mix with a 1x1 conv.
 
 Port of ``sparse_pooling_tpu.models.fusion.SparsePoolFusion`` (NHWC).
 """

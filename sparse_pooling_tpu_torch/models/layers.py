@@ -3,8 +3,11 @@
 The port keeps the JAX package's channels-last layout at every public
 function. These layers take and return [B, H, W, C] tensors; inside they run
 PyTorch's conv on the ``channels_last`` NCHW view of the same memory (the
-permutes are views, and cuDNN keeps the format). Each layer casts its input
-to its parameter dtype, as a flax layer with ``dtype`` does.
+permutes are views, and cuDNN keeps the format). Each layer computes in the
+dtype it was built with, as a flax layer with ``dtype`` does: it casts its
+input, and its parameters where they are kept in another dtype (the trainer
+keeps f32 parameters, as flax's ``param_dtype``; serving keeps them in the
+compute dtype, where the cast is a no-op).
 """
 
 from __future__ import annotations
@@ -27,9 +30,12 @@ class Conv(nn.Conv2d):
 
     def __init__(self, cin: int, cout: int, k: int, dtype=torch.float32):
         super().__init__(cin, cout, k, padding=k // 2, dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return to_nhwc(super().forward(to_nchw(x.to(self.weight.dtype))))
+        cdt = self.compute_dtype
+        y = self._conv_forward(to_nchw(x.to(cdt)), self.weight.to(cdt), self.bias.to(cdt))
+        return to_nhwc(y)
 
 
 class ConvTransposeSame(nn.ConvTranspose2d):
@@ -45,18 +51,26 @@ class ConvTransposeSame(nn.ConvTranspose2d):
         if k != 3 or stride != 2:
             raise ValueError("ConvTransposeSame covers the 3x3 stride-2 upsampler only")
         super().__init__(cin, cout, k, stride=stride, padding=0, dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
-        y = super().forward(to_nchw(x.to(self.weight.dtype)))
+        cdt = self.compute_dtype
+        y = F.conv_transpose2d(to_nchw(x.to(cdt)), self.weight.to(cdt), self.bias.to(cdt),
+                               self.stride, self.padding)
         return to_nhwc(y[:, :, : 2 * h, : 2 * w])
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense`` with ``dtype``: input cast to the parameter dtype."""
+    """flax ``nn.Dense`` with ``dtype`` (default f32): computes in it."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__(cin, cout, dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        cdt = self.compute_dtype
+        return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
 
 
 def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,15 +1,18 @@
-"""End-to-end inference pipeline: raw batch -> model outputs -> detections.
+"""End-to-end pipeline: raw batch -> model outputs -> detections or losses.
 
-Port of ``sparse_pooling_tpu.models.pipeline`` (eval): the packed voxelizer,
-the in-graph image resize, the SHPL COO build and the quad anchor filter
-build the model inputs on the device; ``forward_batch_fn`` runs the detector
-and ``decode_batch`` the final NMS. Entry points take ``device`` (default
+Port of ``sparse_pooling_tpu.models.pipeline``: the packed voxelizer, the
+in-graph image resize, the SHPL COO build and the quad anchor filter build
+the model inputs on the device; ``forward_batch_fn`` runs the detector
+(serving under ``no_grad``; ``train=True`` with path drop and dropout drawn
+from a ``torch.Generator``), ``decode_batch`` the final NMS and
+``loss_batch`` the training losses. Entry points take ``device`` (default
 ``"cuda"``) and raise when it is unavailable.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Sequence
+import contextlib
+from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +20,7 @@ import torch
 from sparse_pooling_tpu_torch import resolve_device
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.detector import SparsePoolingDetector, decode_detections
+from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
 from sparse_pooling_tpu_torch.ops.image_resize import resize_bilinear_batch
@@ -158,20 +162,63 @@ def build_model_inputs_batch(
     }
 
 
-@torch.no_grad()
+def sample_path_keep(generator: Optional[torch.Generator], cfg: ModelConfig,
+                     batch_size: Optional[int] = None, device=None) -> torch.Tensor:
+    """Path-drop flags: keep each branch with its configured probability,
+    but never drop both (a third draw revives one). [2] f32, or [B, 2] with
+    ``batch_size``; drawn on ``device`` (default the generator's)."""
+
+    n = 1 if batch_size is None else batch_size
+    dev = device if device is not None else (generator.device if generator is not None else "cpu")
+    if not cfg.path_drop.enabled:
+        keep = torch.ones((n, 2), dtype=torch.float32, device=dev)
+    else:
+        u = torch.rand((n, 3), generator=generator, device=dev)
+        bev = u[:, 0] < cfg.path_drop.bev_keep_prob
+        img = u[:, 1] < cfg.path_drop.img_keep_prob
+        neither = ~(bev | img)
+        revive_bev = u[:, 2] < 0.5
+        bev = bev | (neither & revive_bev)
+        img = img | (neither & ~revive_bev)
+        keep = torch.stack([bev, img], dim=-1).to(torch.float32)
+    return keep[0] if batch_size is None else keep
+
+
 def forward_batch_fn(
     model: SparsePoolingDetector,
     batch: RawSample,
     anchors_static: torch.Tensor,
     cfg: ModelConfig,
     extents: AreaExtents,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Batched end-to-end inference forward: raw inputs -> model outputs."""
+    """Batched end-to-end forward: raw inputs -> model outputs. Serving
+    (``train=False``) runs under ``no_grad`` with both branches kept;
+    training draws path drop, then dropout, from ``generator`` (on the
+    batch's device) and keeps the graph for the backward."""
 
-    b = batch.points.shape[0]
-    path_keep = torch.ones((b, 2), dtype=torch.float32, device=batch.points.device)
-    inputs = build_model_inputs_batch(batch, anchors_static, path_keep, cfg, extents)
-    return model(inputs)
+    b, dev = batch.points.shape[0], batch.points.device
+    with contextlib.nullcontext() if train else torch.no_grad():
+        if train:
+            path_keep = sample_path_keep(generator, cfg, batch_size=b, device=dev)
+        else:
+            path_keep = torch.ones((b, 2), dtype=torch.float32, device=dev)
+        inputs = build_model_inputs_batch(batch, anchors_static, path_keep, cfg, extents)
+        return model(inputs, train=train, generator=generator)
+
+
+def loss_batch(outputs, batch: RawSample, cfg: ModelConfig, extents: AreaExtents,
+               generator: Optional[torch.Generator] = None, noise=None) -> Dict[str, torch.Tensor]:
+    """Training losses of a batch (``models.loss.detector_loss_batch``); the
+    sampling noise comes from ``generator`` unless ``noise`` is given."""
+
+    if cfg.architecture != "avod":
+        raise NotImplementedError(f"architecture {cfg.architecture!r} is not ported yet")
+    return detector_loss_batch(
+        outputs, batch.gt_boxes_3d, batch.gt_valid, batch.gt_classes, batch.ground_plane,
+        cfg, extents, generator=generator, noise=noise,
+    )
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
-"""Box and anchor encodings used by inference (elementwise f32).
+"""Box and anchor encodings used by inference and the losses (elementwise
+f32).
 
-Port of the inference half of ``sparse_pooling_tpu.ops.encoders``:
+Port of the box_4c and anchor encodings of ``sparse_pooling_tpu.ops.encoders``:
   box_3d   [x, y, z, l, w, h, ry]  (y = bottom centre, ry about y)
   anchor   [x, y, z, dim_x, dim_y, dim_z] (axis-aligned)
   offsets  [(dx)/dim_x, (dy)/dim_y, (dz)/dim_z, log dim ratios]
@@ -38,6 +39,15 @@ def anchor_to_box_3d(anchors: torch.Tensor, ry: torch.Tensor = None) -> torch.Te
     return torch.stack([x, y, z, l, w, dim_y, ry], dim=-1)
 
 
+def anchor_to_offset(anchors: torch.Tensor, gt_anchors: torch.Tensor) -> torch.Tensor:
+    """RPN regression targets [..., 6]: translation over the anchor's dims,
+    dims as log ratios."""
+
+    t_xyz = (gt_anchors[..., :3] - anchors[..., :3]) / anchors[..., 3:6]
+    t_dim = torch.log(gt_anchors[..., 3:6] / anchors[..., 3:6])
+    return torch.cat([t_xyz, t_dim], dim=-1)
+
+
 def offset_to_anchor(anchors: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """Apply RPN regression offsets to anchors."""
 
@@ -46,8 +56,22 @@ def offset_to_anchor(anchors: torch.Tensor, offsets: torch.Tensor) -> torch.Tens
     return torch.cat([xyz, dims], dim=-1)
 
 
+def angle_to_vector(ry: torch.Tensor) -> torch.Tensor:
+    """ry [...] -> [..., 2] (cos, sin)."""
+
+    return torch.stack([torch.cos(ry), torch.sin(ry)], dim=-1)
+
+
 def vector_to_angle(vec: torch.Tensor) -> torch.Tensor:
     return torch.atan2(vec[..., 1], vec[..., 0])
+
+
+def heading_flip_bit(ry: torch.Tensor) -> torch.Tensor:
+    """1 (int64) where ry lies outside the canonical band [-pi/2, pi/2)
+    (mod 2 pi): the flip head's target."""
+
+    w = torch.remainder(ry + math.pi / 2, 2 * math.pi)
+    return (w >= math.pi).to(torch.int64)
 
 
 def _mod(a, m):
@@ -139,6 +163,12 @@ def box_4c_to_box_3d(box_4c: torch.Tensor, ground_plane: torch.Tensor) -> torch.
     y = (h1 - a * xc - c * zc - d) / b
     h = torch.abs(h2 - h1)
     return torch.stack([xc, y, zc, l, w, h, ry], dim=-1)
+
+
+def box_4c_to_offsets(box_4c: torch.Tensor, gt_box_4c: torch.Tensor) -> torch.Tensor:
+    """Stage-2 regression target: the plain difference."""
+
+    return gt_box_4c - box_4c
 
 
 def offsets_to_box_4c(box_4c: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Kernels A (patch pool), B (ELL pool) and C (grouped crop) at their edge
-cases.
+"""Kernels A (patch pool), B (ELL pool) and C (grouped crop), and the
+backward kernels A-bwd and C-bwd, at their edge cases.
 
 The same seeded inputs go two ways:
 
@@ -26,6 +26,15 @@ scalar paths), K = 1, 3, 8 and 16 (the K = 8 path and any K), T = 37 (a
 ragged last block), rows that are all padding or padded past their first
 slots, tensors that are not 16-byte aligned, and indices outside [0, S),
 which the kernel drops.
+
+A-bwd and C-bwd: on the CPU the backward twins against ``jax.vjp`` of the
+JAX package's custom VJPs (A and the f32 crops 1e-5 relative to max(|JAX|,
+1); the bf16 crops 2e-2, the twin summing in bf16 as the reference does),
+the exact crop's plain backward too; on the card each kernel against its
+twin summing in f32 (1e-5 in f32, 1e-2 in bf16: both round one f32 sum,
+taken in another order), over A's cases above (odd C, empty rows, dropped
+ids) and every point in one cell, C's cases above (windows at the map's
+edges), batches of 1 and 3 and gradients that are not 16-byte aligned.
 
 JAX is imported inside a fixture, so this file runs where JAX or flax is
 missing: there the CPU parity tests skip and the card tests still run
@@ -140,7 +149,7 @@ def test_kernel_a_plain_matches_jax_at_edges(jax_ops, case, divide):
         jnp.array(src), jnp.array(rows), jnp.array(cols), jnp.array(vals), A_TARGETS,
         divide_by_weight_sum=divide,
     ))
-    got = sparse_pool.sparse_pool_patch_plain(
+    got, _ = sparse_pool.sparse_pool_patch_plain(
         torch.from_numpy(src), torch.from_numpy(rows), torch.from_numpy(cols),
         torch.from_numpy(vals), A_TARGETS, divide,
     )
@@ -157,12 +166,15 @@ def test_kernel_a_matches_plain_on_card_at_edges(cuda, case, divide, dtype, misa
     x = _on_card(src, cuda, dtype, misaligned)
     r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
     before = sparse_pool.sparse_pool_patch_kernel.launches
-    got = sparse_pool.sparse_pool_patch_kernel(x, r, cl, v, A_TARGETS, divide)
-    want = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, A_TARGETS, divide)
+    got, got_den = sparse_pool.sparse_pool_patch_kernel(x, r, cl, v, A_TARGETS, divide)
+    want, want_den = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, A_TARGETS, divide)
     torch.cuda.synchronize()
     assert sparse_pool.sparse_pool_patch_kernel.launches == before + 1
     assert got.shape == want.shape == (src.shape[0], A_TARGETS, src.shape[-1])
     _assert_rel(got, want, 1e-4)
+    assert (got_den is None) == (want_den is None) == (not divide)
+    if divide:
+        _assert_rel(got_den, want_den, 1e-5)
     empty = want.abs().sum(-1) == 0  # rows no live point reaches stay exactly 0
     assert bool((got[empty] == 0).all())
 
@@ -313,3 +325,160 @@ def test_kernel_b_drops_indices_outside_the_frame(cuda, dtype, rel, k):
     torch.cuda.synchronize()
     _assert_rel(got, want, rel)
     assert bool((got[1, 20] == 0).all())
+
+
+# ------------------------------------------------------------ A-bwd and C-bwd
+
+
+def _jit_vjp(jax, fn, x, g):
+    """The cotangent of ``fn`` at ``x`` for ``g``, jitted (eager tracing of
+    the crops' custom VJPs takes seconds a call)."""
+
+    return jax.jit(lambda xx, gg: jax.vjp(fn, xx)[1](gg)[0])(x, g)
+
+
+def _a_grad(src, t, seed=7):
+    return np.random.RandomState(seed).randn(src.shape[0], t, src.shape[-1]).astype(np.float32)
+
+
+@pytest.mark.parametrize("divide", [True, False])
+@pytest.mark.parametrize("case", sorted(A_CASES))
+def test_kernel_a_bwd_plain_matches_jax_vjp_at_edges(jax_ops, case, divide):
+    """Rows whose flat id falls outside the batch are moved to 0 here: JAX's
+    backward reads the gradient there with ``jnp.take``'s out-of-range fill
+    (NaN); the port drops them (the card tests below keep them)."""
+
+    import jax
+
+    jnp, j_sp, _ = jax_ops
+    src, rows, cols, vals = _a_inputs(case)
+    b = src.shape[0]
+    flat = rows + np.arange(b)[:, None] * A_TARGETS
+    rows = np.where((flat >= 0) & (flat < b * A_TARGETS), rows, 0).astype(np.int32)
+    g = _a_grad(src, A_TARGETS)
+    want = np.array(_jit_vjp(jax, lambda s: j_sp.sparse_pool_patch_major_batch(
+        s, jnp.array(rows), jnp.array(cols), jnp.array(vals), A_TARGETS, divide_by_weight_sum=divide),
+        jnp.array(src), jnp.array(g)))
+    x = torch.from_numpy(src).requires_grad_(True)
+    sparse_pool.sparse_pool_patch_major_batch(
+        x, torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), A_TARGETS, divide
+    ).backward(torch.from_numpy(g))
+    _assert_rel(x.grad, torch.from_numpy(want), 1e-5)
+
+
+def _c_grad(img, boxes, seed=8):
+    shape = (img.shape[0], boxes.shape[1], boxes.shape[2], 3, 3, img.shape[-1])
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(C_CASES))
+def test_kernel_c_bwd_plain_matches_jax_vjp_at_edges(jax_ops, case, dtype):
+    import jax
+
+    jnp, _, j_crop = jax_ops
+    img, boxes, patch = _c_inputs(case)
+    g = _c_grad(img, boxes)
+    jdt = getattr(jnp, dtype)
+    want = _jit_vjp(jax, lambda im: j_crop.crop_and_resize_group_einsum_px(
+        im, jnp.array(boxes), (3, 3), patch=patch), jnp.array(img).astype(jdt), jnp.array(g).astype(jdt))
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    tdt = getattr(torch, dtype)
+    got = crop_resize.crop_and_resize_group_bwd_plain(
+        torch.from_numpy(g).to(tdt), torch.from_numpy(boxes), img.shape, (3, 3), patch, tdt, tdt)
+    assert got.dtype == tdt
+    _assert_rel(got, want, 1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exact_crop_bwd_matches_jax_vjp(jax_ops, dtype):
+    """The stage-2 crop's plain backward (autograd of
+    ``crop_and_resize_px_batch``) against ``_crop_with_vjp``; boxes off the
+    map's edges and a map side of 1."""
+
+    import jax
+
+    jnp, _, j_crop = jax_ops
+    for h, w in ((9, 11), (1, 6)):
+        rng = np.random.RandomState(h + w)
+        img = rng.randn(2, h, w, 5).astype(np.float32)
+        boxes = rng.uniform(-2, max(h, w) + 2, (2, 6, 4)).astype(np.float32)
+        g = rng.randn(2, 6, 7, 7, 5).astype(np.float32)
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        want = _jit_vjp(jax, lambda im: j_crop.crop_and_resize_px_batch(im, jnp.array(boxes), (7, 7)),
+                        jnp.array(img).astype(jdt), jnp.array(g).astype(jdt))
+        want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+        x = torch.from_numpy(img).to(tdt).requires_grad_(True)
+        crop_resize.crop_and_resize_px_batch(x, torch.from_numpy(boxes), (7, 7)).backward(
+            torch.from_numpy(g).to(tdt))
+        assert x.grad.dtype == tdt
+        _assert_rel(x.grad, want, 1e-5 if dtype == "float32" else 2e-2)
+
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _a_bwd_case(case: str, batch: int):
+    """A's edge inputs, cut or tiled to ``batch`` frames; "one_cell" sends
+    every point's four corners to one source cell of each frame."""
+
+    src, rows, cols, vals = _a_inputs("c64" if case == "one_cell" else case)
+    if case == "one_cell":
+        cols[:] = 7
+    reps = -(-batch // src.shape[0])
+    cut = lambda a: np.concatenate([a] * reps)[:batch]  # noqa: E731
+    return cut(src), cut(rows), cut(cols), cut(vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("divide", [True, False])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("case", sorted(A_CASES) + ["one_cell"])
+def test_kernel_a_bwd_matches_plain_on_card_at_edges(cuda, case, batch, divide, dtype, misaligned):
+    src, rows, cols, vals = _a_bwd_case(case, batch)
+    r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
+    x = torch.from_numpy(src).to(cuda, dtype)
+    _, den = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, A_TARGETS, divide)
+    g = _on_card(_a_grad(src, A_TARGETS), cuda, misaligned=misaligned)
+    before = sparse_pool.sparse_pool_patch_bwd_kernel.launches
+    got = sparse_pool.sparse_pool_patch_bwd_kernel(g, r, cl, v, src.shape[1:3], den, dtype)
+    want = sparse_pool.sparse_pool_patch_bwd_plain(g, r, cl, v, src.shape[1:3], den, dtype)
+    torch.cuda.synchronize()
+    assert sparse_pool.sparse_pool_patch_bwd_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == src.shape
+    _assert_rel(got, want, BWD_TOL[dtype])
+    untouched = want.float().abs().sum(-1) == 0  # cells no live corner reaches stay exactly 0
+    assert bool((got[untouched] == 0).all())
+
+
+@pytest.mark.cuda
+def test_kernel_a_forward_writes_the_weight_sums(cuda):
+    src, rows, cols, vals = (torch.from_numpy(a).to(cuda) for a in _a_inputs("c33"))
+    out, den = sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, A_TARGETS, True)
+    want_out, want_den = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, A_TARGETS, True)
+    torch.cuda.synchronize()
+    _assert_rel(out, want_out, 1e-4)
+    _assert_rel(den, want_den, 1e-5)
+    assert bool((den[want_den == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("case", sorted(C_CASES))
+def test_kernel_c_bwd_matches_plain_on_card_at_edges(cuda, case, batch, dtype, misaligned):
+    img, boxes, patch = _c_inputs(case)
+    img = np.concatenate([img, img[::-1]])[:batch]
+    boxes = np.concatenate([boxes, boxes + 1.5])[:batch]
+    bx = torch.from_numpy(np.ascontiguousarray(boxes)).to(cuda)
+    g = _on_card(_c_grad(img, boxes), cuda, dtype, misaligned)
+    before = crop_resize.crop_and_resize_group_bwd_kernel.launches
+    got = crop_resize.crop_and_resize_group_bwd_kernel(g, bx, img.shape, (3, 3), patch, dtype)
+    want = crop_resize.crop_and_resize_group_bwd_plain(g, bx, img.shape, (3, 3), patch, dtype)
+    torch.cuda.synchronize()
+    assert crop_resize.crop_and_resize_group_bwd_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == img.shape
+    _assert_rel(got, want, BWD_TOL[dtype])

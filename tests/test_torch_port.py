@@ -50,6 +50,13 @@ def test_port_imports_no_jax_nor_the_jax_package():
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
+def test_import_check_covers_the_training_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for module in ("ops/iou.py", "ops/losses.py", "ops/target_assign.py", "models/loss.py",
+                   "runtime/trainer.py", "runtime/checkpoint.py", "runtime/summary.py"):
+        assert f"sparse_pooling_tpu_torch/{module}" in names, module
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -86,7 +93,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
               crop_resize.crop_and_resize_group_kernel.launches)
     src, rows, cols, vals = _small_inputs()
     out = sparse_pool.sparse_pool_patch_major_batch(src, rows, cols, vals, 11, True)
-    torch.testing.assert_close(out, sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, 11, True))
+    torch.testing.assert_close(out, sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, 11, True)[0])
     idx = rows[0].reshape(10, 3)
     w = vals[0, :10, :3].contiguous()
     x = src[0].reshape(35, 4)
@@ -117,6 +124,49 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                                vals[:, :10, :3].contiguous())
     with pytest.raises(ValueError, match="expected cuda"):
         crop_resize.crop_and_resize_group_kernel(src, torch.rand(2, 3, 4, 4), (3, 3), 4)
+
+
+def _bwd_launches():
+    return (sparse_pool.sparse_pool_patch_bwd_kernel.launches,
+            crop_resize.crop_and_resize_group_bwd_kernel.launches)
+
+
+def test_cpu_backward_takes_the_plain_twins_and_launches_nothing():
+    before = _bwd_launches()
+    src, rows, cols, vals = _small_inputs()
+    x = src.clone().requires_grad_(True)
+    g = torch.randn(2, 11, 4, generator=torch.Generator().manual_seed(0))
+    _, den = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, 11, True)
+    sparse_pool.sparse_pool_patch_major_batch(x, rows, cols, vals, 11, True).backward(g)
+    torch.testing.assert_close(x.grad, sparse_pool.sparse_pool_patch_bwd_plain(
+        g, rows, cols, vals, (5, 7), den))
+    boxes = torch.rand(2, 3, 4, 4) * 5
+    x = src.clone().requires_grad_(True)
+    gc = torch.randn(2, 3, 4, 3, 3, 4, generator=torch.Generator().manual_seed(1))
+    crop_resize.crop_and_resize_group_einsum_px(x, boxes, (3, 3), 4).backward(gc)
+    torch.testing.assert_close(x.grad, crop_resize.crop_and_resize_group_bwd_plain(
+        gc, boxes, src.shape, (3, 3), 4, torch.float32))
+    assert _bwd_launches() == before
+
+
+def test_gradients_of_the_coo_and_the_boxes_raise():
+    src, rows, cols, vals = _small_inputs()
+    with pytest.raises(NotImplementedError, match="vals"):
+        sparse_pool.sparse_pool_patch_major_batch(src, rows, cols, vals.requires_grad_(True), 11, True)
+    boxes = (torch.rand(2, 3, 4, 4) * 5).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="boxes"):
+        crop_resize.crop_and_resize_group_einsum_px(src, boxes, (3, 3), 4)
+    with pytest.raises(NotImplementedError, match="boxes"):
+        crop_resize.crop_and_resize_px_batch(src, boxes[:, :, 0], (3, 3))
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    src, rows, cols, vals = _small_inputs()
+    with pytest.raises(ValueError, match="expected cuda"):
+        sparse_pool.sparse_pool_patch_bwd_kernel(torch.rand(2, 11, 4), rows, cols, vals, (5, 7))
+    with pytest.raises(ValueError, match="expected cuda"):
+        crop_resize.crop_and_resize_group_bwd_kernel(torch.rand(2, 3, 4, 3, 3, 4), torch.rand(2, 3, 4, 4),
+                                                     src.shape, (3, 3), 4, torch.float32)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -151,10 +201,13 @@ def test_kernel_a_matches_plain_on_card(cuda, dtype, atol, divide):
 
     src, rows, cols, vals = (t.to(cuda) for t in _small_inputs(1))
     src = src.to(dtype)
-    got = sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, 11, divide)
-    want = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, 11, divide)
+    got, got_den = sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, 11, divide)
+    want, want_den = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, 11, divide)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=atol, rtol=1e-5)
+    assert (got_den is None) == (want_den is None) == (not divide)
+    if divide:
+        torch.testing.assert_close(got_den, want_den, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -204,4 +257,32 @@ def test_forward_on_card_counts_kernel_launches(cuda):
     assert sparse_pool.sparse_pool_patch_kernel.launches - a0 == 2
     assert crop_resize.crop_and_resize_group_kernel.launches - c0 == 2
     assert torch.isfinite(det["boxes_3d"]).all()
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_counts_backward_launches(cuda):
+    """One training step of a thin cars model: 2 launches each of A, C,
+    A-bwd and C-bwd (both fusion directions, both RPN views)."""
+
+    from sparse_pooling_tpu_torch.runtime import trainer as tr
+
+    cfg = cars_pyramid_config()
+    model_cfg = dataclasses.replace(
+        cfg.model, backbone=dataclasses.replace(cfg.model.backbone, channels=(8, 8, 8, 16), out_channels=8),
+        avod=dataclasses.replace(cfg.model.avod, fc_layers=(64,)),
+        rpn=dataclasses.replace(cfg.model.rpn, train_nms_size=64),
+    )
+    cfg = dataclasses.replace(cfg, model=model_cfg)
+    model = pl.make_model(model_cfg, device=cuda).float()
+    opt, sched = tr.build_optimizer(model.parameters(), cfg)
+    anchors = pl.static_anchor_grid(model_cfg, AreaExtents(), device=cuda)
+    step = tr.make_train_step(model, opt, sched, anchors, cfg, AreaExtents())
+    batch = pl.stack_frames([synthetic_frame(model_cfg, 4096, s, image="noise") for s in range(2)], device=cuda)
+    kernels_ = (sparse_pool.sparse_pool_patch_kernel, crop_resize.crop_and_resize_group_kernel,
+                sparse_pool.sparse_pool_patch_bwd_kernel, crop_resize.crop_and_resize_group_bwd_kernel)
+    before = [k.launches for k in kernels_]
+    metrics = step(batch, torch.Generator(device=cuda).manual_seed(0))
+    assert [k.launches - b for k, b in zip(kernels_, before)] == [2, 2, 2, 2]
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(torch.isfinite(p).all() for p in model.parameters())
 
