@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--ell-baseline CU]
+    python3 chip_smoke.py [--ell-baseline CU] [--bwd-baseline DIR]
 
 Needs one CUDA card; exits non-zero without one. Phases (any failure exits
 non-zero):
@@ -696,7 +696,122 @@ def compare_grad(got, want, tol_rel: float, what: str):
     return err, err / scale, scale
 
 
-def kernel_a_bwd_phase(calls, flush):
+def load_bwd_baseline(directory: str):
+    """Build another commit's ``sparse_pool_patch.cu`` and ``group_crop.cu``
+    from ``directory`` (with its ``common.cuh``; the backward C interface
+    ``sparse_pool_patch_bwd_launch`` / ``group_crop_bwd_launch`` of the
+    port) with the port's flags under other library names, both compiles at
+    once, and return callers of those backward kernels that take the
+    wrappers' arguments: ``(a_bwd, c_bwd)``."""
+
+    import ctypes
+    import hashlib
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    common = open(f"{directory}/common.cuh", "rb").read()
+    procs = {}
+    for name in ("sparse_pool_patch", "group_crop"):
+        path = f"{directory}/{name}.cu"
+        digest = hashlib.sha256(open(path, "rb").read() + common).hexdigest()[:16]
+        lib_path = kernels.BUILD_DIR / f"bwd_baseline_{name}-{digest}.so"
+        procs[name] = (subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path), path],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                       lib_path)
+    libs = {}
+    for name, (proc, lib_path) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"baseline {name}.cu did not build:\n{log}")
+        lib = ctypes.CDLL(str(lib_path))
+        for symbol in ("sparse_pool_patch_bwd_scratch_ints", "sparse_pool_patch_bwd_launch",
+                       "group_crop_bwd_launch"):
+            if symbol in kernels.SIGNATURES[name]:
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = kernels.SIGNATURES[name][symbol]
+        libs[name] = lib
+
+    def a_bwd(g, rows, cols, vals, src_hw, den, dtype):
+        b, t, c = g.shape
+        hs, ws = src_hw
+        p = rows.shape[1]
+        lib = libs["sparse_pool_patch"]
+        out = g.new_empty((b, hs, ws, c), dtype=dtype)
+        scratch = rows.new_empty(lib.sparse_pool_patch_bwd_scratch_ints(b, p, hs * ws, c))
+        rc = lib.sparse_pool_patch_bwd_launch(
+            g.data_ptr(), None if den is None else den.data_ptr(), b, t, c, rows.data_ptr(),
+            cols.data_ptr(), vals.data_ptr(), p, hs, ws, kernels.DTYPE_CODES[dtype],
+            scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(g.get_device()))
+        check(rc == 0, f"baseline A-bwd launch failed: CUDA error {rc}")
+        return out
+
+    def c_bwd(grad, boxes, image_shape, crop_hw, patch, dtype):
+        b, h, w, c = image_shape
+        p, v = boxes.shape[1:3]
+        acc = grad.new_empty((b, h, w, c), dtype=torch.float32)
+        out = acc if dtype == torch.float32 else grad.new_empty((b, h, w, c))
+        rc = libs["group_crop"].group_crop_bwd_launch(
+            grad.data_ptr(), kernels.DTYPE_CODES[dtype], b, h, w, c, boxes.data_ptr(), p, v,
+            int(crop_hw[0]), int(crop_hw[1]), int(patch), acc.data_ptr(), out.data_ptr(),
+            kernels.stream_ptr(grad.get_device()))
+        check(rc == 0, f"baseline C-bwd launch failed: CUDA error {rc}")
+        return out
+
+    return a_bwd, c_bwd
+
+
+def c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype) -> str:
+    """C-bwd's device execution by phase (torch.profiler, L2-warm): the
+    kernel run whole and cut short after its loads, window starts and row
+    sort (stop 1) and after both contractions (stop 2,
+    ``group_crop_bwd_split_launch``); the phases are the differences, the
+    memset and the bf16 rounding pass their own launches."""
+
+    lib = kernels.library("group_crop")
+    b, h, w, c = image_shape
+    p, v = boxes.shape[1:3]
+    acc = grad.new_empty((b, h, w, c), dtype=torch.float32)
+    out = acc if dtype == torch.float32 else grad.new_empty((b, h, w, c))
+    dev = grad.get_device()
+
+    def run(stop):
+        def call():
+            rc = lib.group_crop_bwd_split_launch(
+                grad.data_ptr(), kernels.DTYPE_CODES[dtype], b, h, w, c, boxes.data_ptr(), p, v,
+                int(crop_hw[0]), int(crop_hw[1]), int(patch), acc.data_ptr(), out.data_ptr(), stop,
+                kernels.stream_ptr(dev))
+            check(rc == 0, f"C-bwd split launch (stop {stop}) failed: CUDA error {rc}")
+        return dict(kernel_parts(call))
+
+    parts = {stop: run(stop) for stop in (0, 1, 2)}
+    if not parts[0]:
+        return "torch.profiler recorded no device time: not measured"
+
+    def kernel(d):
+        return sum(us for name, us in d.items() if name.startswith("group_crop_bwd"))
+
+    k0, k1, k2 = kernel(parts[0]), kernel(parts[1]), kernel(parts[2])
+    rest = "; ".join(f"{name} {us:.2f} us" for name, us in parts[0].items()
+                     if not name.startswith("group_crop_bwd"))
+    return (f"kernel {k0:.2f} us = load, window starts and row sort {k1:.2f} + both contractions "
+            f"{k2 - k1:.2f} + global reduction (atomics) {k0 - k2:.2f}; {rest}")
+
+
+def earlier_bwd(res, label, call, want, flush) -> None:
+    """An earlier backward kernel (``--bwd-baseline``) on the same inputs:
+    its gap to the twin, its times and per-launch split, summed into
+    ``res["earlier_*"]``."""
+
+    dtype = want.dtype
+    err, rel, _ = compare_grad(call(), want, BWD_TOL[dtype], f"earlier kernel {label} {dtype}")
+    base = timings(call, flush)
+    base["profiled_us"] = sum(us for _, us in kernel_parts(call))
+    print(f"  {label}: earlier kernel {timing_text(base)}, {base['profiled_us']:.2f} us kernel "
+          f"execution (torch.profiler: {device_split(call)}); max abs err to the twin {err:.3e} "
+          f"(rel {rel:.3e})")
+    for key, value in base.items():
+        res[f"earlier_{key}"] = res.get(f"earlier_{key}", 0.0) + value
+
+
+def kernel_a_bwd_phase(calls, flush, baseline=None):
     """A-bwd at the two recorded calls of one training step (BEV<-FV and
     FV<-BEV: the gradients of the image and BEV mid maps), in the main path's
     bf16 and in f32, against its twin (f32 sums, rounded once); the library
@@ -723,6 +838,10 @@ def kernel_a_bwd_phase(calls, flush):
 
         kern = timings(kernel_call, flush)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
+        if baseline is not None:
+            earlier_bwd(res, label, lambda: baseline(g, rows, cols, vals, src_hw, den, dtype),
+                        sparse_pool.sparse_pool_patch_bwd_plain(g, rows, cols, vals, src_hw, den, dtype),
+                        flush)
         plain = median_ms(lambda: sparse_pool.sparse_pool_patch_bwd_plain(
             g, rows, cols, vals, src_hw, den, dtype))
         # library: cuSPARSE, the transposed matrix (source cell x target row)
@@ -757,7 +876,7 @@ def kernel_a_bwd_phase(calls, flush):
     return res
 
 
-def kernel_c_bwd_phase(calls, flush):
+def kernel_c_bwd_phase(calls, flush, baseline=None):
     """C-bwd at the two recorded calls of one training step (BEV and image
     RPN crops) in the main path's bf16 and in f32, against the twin summing
     in f32; the gap to the twin summing in bf16 (the reference's
@@ -796,6 +915,12 @@ def kernel_c_bwd_phase(calls, flush):
 
         kern = timings(kernel_call, flush)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
+        print(f"  {label} phases per call (L2-warm): "
+              f"{c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype)}")
+        if baseline is not None:
+            earlier_bwd(res, label, lambda: baseline(grad, boxes, image_shape, crop_hw, patch, dtype),
+                        crop_resize.crop_and_resize_group_bwd_plain(grad, boxes, image_shape, crop_hw,
+                                                                    patch, dtype), flush)
         plain = median_ms(lambda: crop_resize.crop_and_resize_group_bwd_plain(
             grad, boxes, image_shape, crop_hw, patch, dtype))
         ys, xs, y0, x0 = crop_resize._group_starts(boxes, h, w, crop_hw, patch)
@@ -891,7 +1016,7 @@ def profile_train_step(step, batch, gen, step_ms: float) -> None:
 LOSS_KEYS = ("total", "rpn_objectness", "rpn_regression", "cls", "reg", "orientation", "flip")
 
 
-def training_phase(device, flush):
+def training_phase(device, flush, bwd_baseline=None):
     """Phase 6; returns the A-bwd and C-bwd results and their launches in
     the Trainer's 6 steps."""
 
@@ -916,8 +1041,9 @@ def training_phase(device, flush):
     torch.cuda.synchronize()
     check(len(a_bwd) == 2 and len(c_bwd) == 2, "a training step did not reach A-bwd and C-bwd twice")
     print("[backward kernels vs plain] (as above; inputs of one full-width training step, batch 8)")
-    res_a_bwd = kernel_a_bwd_phase(a_bwd, flush)
-    res_c_bwd = kernel_c_bwd_phase(c_bwd, flush)
+    a_base, c_base = load_bwd_baseline(bwd_baseline) if bwd_baseline else (None, None)
+    res_a_bwd = kernel_a_bwd_phase(a_bwd, flush, a_base)
+    res_c_bwd = kernel_c_bwd_phase(c_bwd, flush, c_base)
     del a_bwd, c_bwd
 
     # the Trainer: 6 steps, counts read around exactly these; its workdir
@@ -1045,7 +1171,7 @@ def train_card_vs_cpu_phase() -> None:
     check(rel <= 1e-4, f"training card vs cpu: gradients differ by {rel:.3e} relative")
 
 
-def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
+def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -1185,7 +1311,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
 
     # 6. training at full width: backward kernels, Trainer, resume, fixed batch
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
-    res_a_bwd, res_c_bwd, train_launches = training_phase(device, flush)
+    res_a_bwd, res_c_bwd, train_launches = training_phase(device, flush, bwd_baseline)
     del flush
 
     # 7. one training step on the card against the CPU
@@ -1209,6 +1335,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None) -> int:
                                            **one_frame}))
     print("[ell probe shapes] " + json.dumps({"replaces": "tools/probe_pallas_shpl.py:66", **probe}))
     print(f"[ell batch {BATCH}] " + json.dumps(res_b))
+    print("[A-bwd, both calls] " + json.dumps(res_a_bwd))
+    print("[C-bwd, both calls] " + json.dumps(res_c_bwd))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))
@@ -1241,5 +1369,9 @@ if __name__ == "__main__":
     parser.add_argument("--ell-baseline", metavar="CU", default=None,
                         help="also time this kernel B source with the one-frame C interface "
                              "(the kernel before the batched redesign) on the same work")
+    parser.add_argument("--bwd-baseline", metavar="DIR", default=None,
+                        help="also build this directory's sparse_pool_patch.cu and group_crop.cu "
+                             "(with its common.cuh; the backward C interface of the port) and time "
+                             "their backward kernels A-bwd and C-bwd on the same recorded inputs")
     args = parser.parse_args()
-    sys.exit(main(ell_baseline=args.ell_baseline))
+    sys.exit(main(ell_baseline=args.ell_baseline, bwd_baseline=args.bwd_baseline))

@@ -48,6 +48,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSamplesPerBlock = 2304;  // 8 units of 32 variants x 3 x 3
 constexpr int kMaxUnits = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemBytes = 48 * 1024;
 
 __device__ __forceinline__ float tent(float d) { return fmaxf(0.0f, 1.0f - fabsf(d)); }
@@ -222,89 +223,141 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
 //
 // The image gradient of the crop, the window transpose of the reference's
 // `_group_feature_grad` (crop_resize.py:789-834): sample (v, i, k) of unit
-// (b, p) adds wy_j * (wx_l * g[b, p, v, i, k, c]) to window cell (j, l) of
-// the unit's window at (y0, x0), for the two taps j, l of each axis whose tent
+// (b, p) adds wy_j * wx_l * g[b, p, v, i, k, c] to window cell (j, l) of the
+// unit's window at (y0, x0), for the two taps j, l of each axis whose tent
 // weight is non-zero; neighbouring units' windows overlap. The box gradient
 // is not computed (the RPN's anchor boxes take none).
-//
-// Design: a block takes U units (4 on the main path, as many as fit 48 KB).
-// (1) the units' output gradients go to shared memory with 16-byte loads;
-// (2) the forward's coordinates and window starts in shared memory; (3) each
-// unit's py x px x C window gradient in f32 shared memory, zeroed; (4) a
-// thread per unit sorts its sample rows (v, i) by their first y tap; then a
-// thread per (unit, window row, 4 channels) walks the sample rows whose y
-// taps include its row and adds their samples into its own row with 16-byte
-// shared loads and stores. No two threads write one cell, so no shared
-// atomics: a first version gave each sample a thread and 32 shared atomics,
-// which the variants' common cells serialised (315-382 us a view on an
-// NVIDIA H100 80GB HBM3 at 700 W, against 83-99 us for this design). (5)
-// The block adds its windows' non-zero cells into an f32 [B, H, W, C]
-// buffer (zeroed first) with global atomics, 16 bytes each where C = 8;
-// (6) for a bf16 image one pass rounds the buffer once to bf16 (an f32
-// image's gradient is the buffer itself). Sums meet by atomics, so their
-// order varies from run to run (f32 rounding). The reference sums a bf16
-// map's gradient in bf16 (`_acc_dtype`, crop_resize.py:117-129); this
-// kernel sums in f32 and rounds once.
 //
 // Bound on an H100: bytes. At the main path's shapes (4096 units of V = 32,
 // 3 x 3 samples, C = 8 bf16 a view) a call reads 18.9 MB of output gradient
 // and writes the [B, H, W, C] image gradient once.
+//
+// Design: the reference's two contractions, each with every thread of the
+// block busy. A block of 256 threads takes U units: as many as the
+// forward's sample budget allows within a quarter of an SM's shared memory
+// (56 KB), so that four blocks share an SM; on the main path that is 2 units
+// with their channels in two chunks of 4. (Where one unit needs more, the
+// block takes up to 227 KB.) PERF.md section 6 has 8 units a block in
+// 227 KB at the main path's shapes, slower than 2 in 56 KB.
+// (1) The units' output gradients go to shared memory with 16-byte cp.async
+//     copies while one thread per (unit, variant) writes the sample
+//     coordinates.
+// (2) A warp per unit: lane 0 sums the midpoints in v order and divides, as
+//     the forward does (a one-ulp change there would move the window); the
+//     lanes write each (v, k) column's x taps and weights, then sort the
+//     unit's sample rows (v, i) by their first y tap j0 with a counting sort
+//     that stays stable in (v, i) order (`__match_any_sync` ranks the lanes
+//     of one pass that share a tap).
+// (3) x first: a thread per (unit, sample row, channel group) sums its CW
+//     columns' wx * g into its own row of g_t[u, row, l, c] (f32, rows in
+//     sorted order), so no two threads write one value.
+// (4) y next: a thread per (unit, run of sorted rows, window column l,
+//     channel group) walks its run in tap order with the cells (j0, l) and
+//     (j0 + 1, l) of the current tap in registers, so each g_t value is read
+//     once, and adds each cell its rows are past into an f32 [B, H, W, C]
+//     buffer (zeroed first) with a global atomic, 16 bytes where C = 8. The
+//     runs split each unit's rows so that the block's threads are all busy
+//     and each walks as many rows; a cell that spans two runs meets its rest
+//     in the buffer.
+// Where g_t of all C channels does not fit beside the gradients, (3) and (4)
+// run once per chunk of channels. (5) For a bf16 image one pass rounds the
+// buffer once to bf16 (an f32 image's gradient is the buffer itself). Sums
+// meet by atomics, so their order varies from run to run (f32 rounding). The
+// reference sums a bf16 map's gradient in bf16 (`_acc_dtype`,
+// crop_resize.py:117-129); this kernel sums in f32 and rounds once.
+//
+// What holds it back on an H100 is the two contractions, not the atomics:
+// PERF.md section 6 has chip_smoke.py's phase split at the main path's
+// shapes. Each of these made the contractions slower, not faster:
+// reading only the window columns a row reaches, writing each g_t cell once
+// from registers, and a thread per window cell walking the rows of its two
+// taps (the first form of (4), which read each g_t value twice and gave the
+// threads of a warp unequal walks); and contracting x inside (4) from the
+// staged gradients, with no g_t at all.
 
-// dst[0..N) += wy * (wx * g[0..N)), one vector load and store of N floats.
+constexpr int kBwdThreads = 256;
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may take
+constexpr int kSmemTarget = 56 * 1024;  // four blocks an SM
+
+// dst[0..N) += w * g[0..N), one vector load and store of N floats.
 template <int N>
-__device__ __forceinline__ void add_scaled(float* dst, float wy, float wx, const float (&g)[N]) {
+__device__ __forceinline__ void add_scaled(float* dst, float w, const float (&g)[N]) {
   float a[N];
   spt::load_f32<float, N>(dst, a);
 #pragma unroll
-  for (int n = 0; n < N; ++n) a[n] = a[n] + wy * (wx * g[n]);
+  for (int n = 0; n < N; ++n) a[n] = a[n] + w * g[n];
   spt::store_from_f32<float, N>(dst, a);
 }
 
-// Shared memory of C-bwd for U units: the f32 windows, the units' output
-// gradients, then coordinates, starts and the row sort; each part from a
-// 16-byte boundary.
+// A column (v, k)'s x taps: l0 and, where l0 + 1 is inside the window, l0 + 1.
+struct XTap {
+  float w0, w1;
+  int l0, two;
+};
+// A sorted sample row: the tent weights of its y taps j0, j0 + 1, j0 and
+// the row's index r = v * CH + i.
+struct YRow {
+  float w0, w1;
+  int j0, r;
+};
+
+// Shared memory of C-bwd for U units and a channel chunk of Cc; each part
+// starts at a 16-byte boundary.
 struct BwdSmem {
-  int grads, coords, total;
+  int gt, ys, xs, taps, rows, off, starts, total;
 };
 __host__ __device__ __forceinline__ int round16(int n) { return (n + 15) / 16 * 16; }
-__host__ __device__ __forceinline__ BwdSmem bwd_smem(int U, int py, int px, int C, int V, int CH,
-                                                     int CW, int t_size) {
+__host__ __device__ __forceinline__ BwdSmem bwd_smem(int U, int Cc, int py, int px, int C, int V,
+                                                     int CH, int CW, int t_size) {
+  const int R = V * CH;
   BwdSmem m;
-  m.grads = round16(U * py * px * C * (int)sizeof(float));
-  m.coords = m.grads + round16(U * V * CH * CW * C * t_size);
-  m.total = m.coords + (int)sizeof(float) * U * V * (CH + CW) +
-            (int)sizeof(int) * U * (2 + V * CH + py + 1);
+  m.gt = round16(U * R * CW * C * t_size);  // the gradients come first
+  m.ys = m.gt + round16(U * R * (px * Cc + (C % 4 == 0 ? 4 : 1)) * (int)sizeof(float));
+  m.xs = m.ys + round16(U * R * (int)sizeof(float));
+  m.taps = m.xs + round16(U * V * CW * (int)sizeof(float));
+  m.rows = m.taps + round16(U * V * CW * (int)sizeof(XTap));
+  m.off = m.rows + round16(U * R * (int)sizeof(YRow));
+  m.starts = m.off + round16(U * (py + 1) * (int)sizeof(int));
+  m.total = m.starts + round16(U * 2 * (int)sizeof(int));
   return m;
 }
 
+// stop (the phase split of chip_smoke.py): 0 runs every phase; 1 stops after
+// the loads, the window starts and the sort; 2 also runs both contractions
+// but adds nothing into acc.
 template <typename T, int CV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 4)
 group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __restrict__ boxes,
-               int units, int P, int V, int CH, int CW, int patch, int U,
+               int units, int P, int V, int CH, int CW, int patch, int U, int Cc, int stop,
                float* __restrict__ acc) {
   const int C = CV > 0 ? CV : c_rt;
+  constexpr int Wc = CV > 0 && CV % 4 == 0 ? 4 : 1;  // channels a thread carries
   const int py = min(patch, H), px = min(patch, W);
-  const int win = py * px * C;
-  const int S = V * CH * CW;
+  const int R = V * CH;
+  const int S = R * CW;
   extern __shared__ __align__(16) unsigned char smem[];
-  const BwdSmem sm = bwd_smem(U, py, px, C, V, CH, CW, (int)sizeof(T));
-  float* windows = reinterpret_cast<float*>(smem);                // [U, py, px, C]
-  T* gst = reinterpret_cast<T*>(smem + sm.grads);                 // [U, S, C]
-  float* ys = reinterpret_cast<float*>(smem + sm.coords);          // [U, V, CH]
-  float* xs = ys + U * V * CH;                                     // [U, V, CW]
-  int* starts = reinterpret_cast<int*>(xs + U * V * CW);           // [U, 2]
-  int* by_row = starts + 2 * U;                                    // [U, V * CH]
-  int* row_off = by_row + U * V * CH;                              // [U, py + 1]
+  const BwdSmem sm = bwd_smem(U, Cc, py, px, C, V, CH, CW, (int)sizeof(T));
+  T* gst = reinterpret_cast<T*>(smem);                          // [U, S, C]
+  float* gt = reinterpret_cast<float*>(smem + sm.gt);           // [U, R, gs]: px x Cc used
+  float* ys = reinterpret_cast<float*>(smem + sm.ys);           // [U, V, CH]
+  float* xs = reinterpret_cast<float*>(smem + sm.xs);           // [U, V, CW]
+  XTap* taps = reinterpret_cast<XTap*>(smem + sm.taps);         // [U, V, CW]
+  YRow* rows = reinterpret_cast<YRow*>(smem + sm.rows);         // [U, R], sorted by j0
+  int* off = reinterpret_cast<int*>(smem + sm.off);             // [U, py + 1] sort counts
+  int* starts = reinterpret_cast<int*>(smem + sm.starts);       // [U, 2]
+  const int gs = px * Cc + Wc;  // a g_t row's stride, padded against bank conflicts
 
   const int unit0 = blockIdx.x * U;
   const int nu = min(U, units - unit0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // the units' gradients to shared memory: 16-byte loads where C = 8
+  // (1) gradients and coordinates
   const T* g0 = g + (size_t)unit0 * S * C;
   if constexpr (CV > 0) {
     constexpr int kPer = 16 / (int)sizeof(T);
     for (int e = threadIdx.x; e < nu * S * CV / kPer; e += blockDim.x)
-      reinterpret_cast<uint4*>(gst)[e] = reinterpret_cast<const uint4*>(g0)[e];
+      __pipeline_memcpy_async(gst + e * kPer, g0 + e * kPer, 16);
+    __pipeline_commit();
   } else {
     for (int e = threadIdx.x; e < nu * S * C; e += blockDim.x) gst[e] = g0[e];
   }
@@ -313,102 +366,168 @@ group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __r
     sample_coords(q[0], q[2], CH, H, ys + t * CH);
     sample_coords(q[1], q[3], CW, W, xs + t * CW);
   }
-  for (int e = threadIdx.x; e < nu * win; e += blockDim.x) windows[e] = 0.0f;
-  for (int e = threadIdx.x; e < nu * (py + 1); e += blockDim.x) row_off[e] = 0;
   __syncthreads();
 
-  for (int u = threadIdx.x; u < nu; u += blockDim.x) {
-    const float* yu = ys + u * V * CH;
+  // (2) a warp per unit: window start, x taps, rows sorted by j0
+  for (int u = warp; u < nu; u += blockDim.x >> 5) {
+    const float* yu = ys + u * R;
     const float* xu = xs + u * V * CW;
-    float sy = 0.0f, sx = 0.0f;
-    for (int v = 0; v < V; ++v) {
-      sy = sy + (yu[v * CH] + yu[v * CH + CH - 1]);
-      sx = sx + (xu[v * CW] + xu[v * CW + CW - 1]);
+    int y0 = 0, x0 = 0;
+    if (lane == 0) {
+      float sy = 0.0f, sx = 0.0f;
+      for (int v = 0; v < V; ++v) {
+        sy = sy + (yu[v * CH] + yu[v * CH + CH - 1]);
+        sx = sx + (xu[v * CW] + xu[v * CW + CW - 1]);
+      }
+      const float y_mid = 0.5f * (sy / (float)V);
+      const float x_mid = 0.5f * (sx / (float)V);
+      const float half = (float)(patch - 2) / 2.0f;
+      y0 = min(max((int)floorf(y_mid - half), 0), max(H - patch, 0));
+      x0 = min(max((int)floorf(x_mid - half), 0), max(W - patch, 0));
+      starts[2 * u] = y0;
+      starts[2 * u + 1] = x0;
     }
-    const float y_mid = 0.5f * (sy / (float)V);
-    const float x_mid = 0.5f * (sx / (float)V);
-    const float half = (float)(patch - 2) / 2.0f;
-    const int y0 = starts[2 * u] = min(max((int)floorf(y_mid - half), 0), max(H - patch, 0));
-    starts[2 * u + 1] = min(max((int)floorf(x_mid - half), 0), max(W - patch, 0));
-    // the unit's sample rows (v, i) sorted by their first y tap j0 (a counting
-    // sort, stable in (v, i) order): row_off[j] .. row_off[j + 1] of by_row
-    int* off = row_off + u * (py + 1);
-    int* order = by_row + u * V * CH;
-    const auto j0_of = [&](int vi) {
-      return min((int)floorf(fminf(fmaxf(yu[vi] - (float)y0, 0.0f), (float)py - 1.0f)), py - 1);
+    y0 = __shfl_sync(kFull, y0, 0);
+    x0 = __shfl_sync(kFull, x0, 0);
+    for (int e = lane; e < V * CW; e += 32) {
+      const float rx = fminf(fmaxf(xu[e] - (float)x0, 0.0f), (float)px - 1.0f);
+      const int l0 = min((int)floorf(rx), px - 1);
+      const int l1 = min(l0 + 1, px - 1);
+      taps[u * V * CW + e] = {tent(rx - (float)l0), l1 > l0 ? tent(rx - (float)l1) : 0.0f, l0,
+                              l1 > l0};
+    }
+    // counting sort of the R rows by j0, stable in (v, i) order: counts in
+    // cnt[1 + j0]; an inclusive scan makes cnt[j] the first place of tap j;
+    // then pass by pass each lane takes cnt[j0] plus its rank among the
+    // pass's lanes of the same j0, and the lowest of them advances cnt[j0]
+    int* cnt = off + u * (py + 1);
+    for (int j = lane; j < py + 1; j += 32) cnt[j] = 0;
+    __syncwarp();
+    const auto y_of = [&](int r) {
+      return fminf(fmaxf(yu[r] - (float)y0, 0.0f), (float)py - 1.0f);
     };
-    for (int vi = 0; vi < V * CH; ++vi) ++off[1 + j0_of(vi)];
-    for (int j = 1; j <= py; ++j) off[j] += off[j - 1];
-    for (int vi = 0; vi < V * CH; ++vi) order[off[j0_of(vi)]++] = vi;
-    for (int j = py; j > 0; --j) off[j] = off[j - 1];
-    off[0] = 0;
+    for (int r = lane; r < R; r += 32) atomicAdd(cnt + 1 + min((int)floorf(y_of(r)), py - 1), 1);
+    __syncwarp();
+    int carry = 0;
+    for (int base = 0; base < py + 1; base += 32) {
+      const int j = base + lane;
+      int v = j < py + 1 ? cnt[j] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, v, d);
+        if (lane >= d) v += y;
+      }
+      if (j < py + 1) cnt[j] = carry + v;
+      carry += __shfl_sync(kFull, v, 31);
+    }
+    __syncwarp();
+    YRow* ru = rows + u * R;
+    const unsigned below = (1u << lane) - 1;
+    for (int base = 0; base < R; base += 32) {
+      const int r = base + lane;
+      const float ry = r < R ? y_of(r) : 0.0f;
+      const int j0 = r < R ? min((int)floorf(ry), py - 1) : -1 - lane;  // no match past R
+      const unsigned peers = __match_any_sync(kFull, j0);
+      const int at = r < R ? cnt[j0] + __popc(peers & below) : 0;
+      __syncwarp();
+      if (r < R) {
+        if ((peers & below) == 0) cnt[j0] += __popc(peers);
+        ru[at] = {tent(ry - (float)j0), tent(ry - (float)(j0 + 1)), j0, r};
+      }
+      __syncwarp();
+    }
   }
+  if constexpr (CV > 0) __pipeline_wait_prior(0);
   __syncthreads();
+  if (stop == 1) return;
 
-  // each thread owns one window row j and W channels of a unit and sums
-  // into that row the samples whose y taps include j: the rows (v, i) with
-  // j0 = j and with j0 = j - 1. No two threads add into one cell: no atomics.
-  constexpr int Wc = CV > 0 && CV % 4 == 0 ? 4 : 1;  // 16-byte row updates where C = 8
-  const int groups = C / Wc;
-  const int y_items = py * groups;
-  for (int t = threadIdx.x; t < nu * y_items; t += blockDim.x) {
-    const int u = t / y_items;
-    const int j = (t - u * y_items) / groups;
-    const int c = (t - u * y_items - j * groups) * Wc;
-    const float y0 = (float)starts[2 * u], x0 = (float)starts[2 * u + 1];
-    const float* yu = ys + u * V * CH;
-    const float* xu = xs + u * V * CW;
-    const T* gu = gst + (size_t)u * S * C + c;
-    const int* order = by_row + u * V * CH;
-    const int* off = row_off + u * (py + 1);
-    float* row = windows + (size_t)u * win + j * px * C + c;
-    for (int q = off[max(j - 1, 0)]; q < off[j + 1]; ++q) {
-      const int vi = order[q];  // v * CH + i
-      const float ry = fminf(fmaxf(yu[vi] - y0, 0.0f), (float)py - 1.0f);
-      // the tap j of this row: tent(ry - j) is its weight whether j is the
-      // row's j0 or j0 + 1 (0 at j0 + 1 where j0 is the last row)
-      const float wy = tent(ry - (float)j);
-      if (wy == 0.0f) continue;
-      const float* xv = xu + (vi / CH) * CW;
+  for (int c0 = 0; c0 < C; c0 += Cc) {
+    const int cn = min(Cc, C - c0);
+    const int groups = cn / Wc;
+    // (3) x first: g_t[u, place, l, :] = sum_k wx * g over the row's columns
+    for (int e = threadIdx.x; e < nu * R * groups; e += blockDim.x) {
+      const int u = e / (R * groups);
+      const int rem = e - u * R * groups;
+      const int q = rem / groups;  // sorted place
+      const int c = (rem - q * groups) * Wc;
+      const int r = rows[u * R + q].r;
+      float* dst = gt + (size_t)(u * R + q) * gs + c;
+      const float zero[Wc] = {};
+      for (int l = 0; l < px; ++l) spt::store_from_f32<float, Wc>(dst + l * Cc, zero);
+      const XTap* tv = taps + (u * V + r / CH) * CW;
+      const T* gr = gst + ((size_t)u * S + r * CW) * C + c0 + c;
       for (int k = 0; k < CW; ++k) {
-        const float rx = fminf(fmaxf(xv[k] - x0, 0.0f), (float)px - 1.0f);
-        const int l0 = min((int)floorf(rx), px - 1);
-        const int l1 = min(l0 + 1, px - 1);
+        const XTap tp = tv[k];
         float gv[Wc];
-        spt::load_f32<T, Wc>(gu + (size_t)(vi * CW + k) * C, gv);
-        add_scaled<Wc>(row + l0 * C, wy, tent(rx - (float)l0), gv);
-        if (l1 > l0) add_scaled<Wc>(row + l1 * C, wy, tent(rx - (float)l1), gv);
+        spt::load_f32<T, Wc>(gr + k * C, gv);
+        add_scaled<Wc>(dst + tp.l0 * Cc, tp.w0, gv);
+        if (tp.two) add_scaled<Wc>(dst + (tp.l0 + 1) * Cc, tp.w1, gv);
       }
     }
-  }
-  __syncthreads();
-
-  const int row_len = px * C;
-  if constexpr (CV > 0 && CV % 4 == 0) {
-    // 16-byte vector reductions (sm_90): a quarter of the global atomics
-    const int win4 = win / 4, row4 = row_len / 4;
-    for (int e = threadIdx.x; e < nu * win4; e += blockDim.x) {
-      const float4 val = reinterpret_cast<const float4*>(windows)[e];
-      if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) continue;
-      const int u = e / win4;
-      const int rem = e - u * win4;
-      const int r = rem / row4;
+    __syncthreads();
+    // (4) y next: a thread per (unit, run of sorted rows, window column l,
+    // channel group) walks its rows in tap order, holding cells (j, l) and
+    // (j + 1, l) of the current tap j, and adds a cell into acc once its rows
+    // are past; a cell that runs on in the next run meets its rest there by
+    // the atomics. The runs split the rows so that the block's threads are
+    // busy, and every thread walks as many rows.
+    const int cols = nu * px * groups;
+    const int runs = max(1, (int)blockDim.x / cols);
+    const int per = (R + runs - 1) / runs;
+    for (int e = threadIdx.x; e < cols * runs; e += blockDim.x) {
+      const int u = e / (runs * px * groups);
+      int rem = e - u * runs * px * groups;
+      const int run = rem / (px * groups);
+      rem -= run * px * groups;
+      const int l = rem / groups;
+      const int c = (rem - l * groups) * Wc;
+      const int q0 = run * per, q1 = min(q0 + per, R);
+      if (q0 >= q1) continue;
+      const YRow* ru = rows + u * R;
+      const float* src = gt + (size_t)u * R * gs + l * Cc + c;
       const int b = (unit0 + u) / P;
-      float* row = acc + (((size_t)b * H + starts[2 * u] + r) * W + starts[2 * u + 1]) * CV;
-      atomicAdd(reinterpret_cast<float4*>(row) + (rem - r * row4), val);
+      float* col = acc + (((size_t)b * H + starts[2 * u]) * W + starts[2 * u + 1] + l) * C + c0 + c;
+      const auto add_cell = [&](int j, const float (&a)[Wc]) {
+        bool any = false;
+#pragma unroll
+        for (int n = 0; n < Wc; ++n) any |= a[n] != 0.0f;
+        if (!any) return;
+        float* cell = col + (size_t)j * W * C;
+        if (stop == 2) {
+          if (a[0] == -1.0e-38f) cell[0] = a[Wc - 1];  // keeps the sums live, never true in practice
+          return;
+        }
+        if constexpr (Wc == 4)
+          atomicAdd(reinterpret_cast<float4*>(cell), make_float4(a[0], a[1], a[2], a[3]));
+        else
+          atomicAdd(cell, a[0]);
+      };
+      float a0[Wc] = {}, a1[Wc] = {};  // cells (cur, l) and (cur + 1, l)
+      int cur = ru[q0].j0;
+      for (int q = q0; q < q1; ++q) {
+        const YRow yr = ru[q];
+        if (yr.j0 != cur) {  // the rows are past cell (cur, l)
+          add_cell(cur, a0);
+          if (yr.j0 != cur + 1) add_cell(cur + 1, a1);
+#pragma unroll
+          for (int n = 0; n < Wc; ++n) {
+            a0[n] = yr.j0 == cur + 1 ? a1[n] : 0.0f;
+            a1[n] = 0.0f;
+          }
+          cur = yr.j0;
+        }
+        float t[Wc];
+        spt::load_f32<float, Wc>(src + (size_t)q * gs, t);
+#pragma unroll
+        for (int n = 0; n < Wc; ++n) {
+          a0[n] = a0[n] + yr.w0 * t[n];
+          a1[n] = a1[n] + yr.w1 * t[n];
+        }
+      }
+      add_cell(cur, a0);
+      if (cur + 1 < py) add_cell(cur + 1, a1);
     }
-  } else {
-    for (int e = threadIdx.x; e < nu * win; e += blockDim.x) {
-      const float val = windows[e];
-      if (val == 0.0f) continue;
-      const int u = e / win;
-      const int rem = e - u * win;
-      const int r = rem / row_len;
-      const int b = (unit0 + u) / P;
-      atomicAdd(acc + ((size_t)b * H + starts[2 * u] + r) * W * C + (size_t)starts[2 * u + 1] * C +
-                    (rem - r * row_len),
-                val);
-    }
+    __syncthreads();
   }
 }
 
@@ -418,30 +537,79 @@ __global__ void round_to_bf16(const float* __restrict__ acc, long long n,
   if (i < n) out[i] = __float2bfloat16_rn(acc[i]);
 }
 
+// stop: the phase split's cut (0: none; see group_crop_bwd).
 template <typename T>
 int launch_bwd(const void* g_v, int B, int H, int W, int C, const float* boxes, int P, int V,
-               int CH, int CW, int patch, float* acc, cudaStream_t stream) {
+               int CH, int CW, int patch, float* acc, int stop, cudaStream_t stream) {
   const T* g = static_cast<const T*>(g_v);
   const int units = B * P;
   const int S = V * CH * CW;
   const int py = patch < H ? patch : H;
   const int px = patch < W ? patch : W;
   const int t_size = (int)sizeof(T);
-  if (bwd_smem(1, py, px, C, V, CH, CW, t_size).total > kSmemBytes)
-    return (int)cudaErrorInvalidValue;  // one unit must fit
+  const bool vec = C == 8 && spt::aligned(g, 16);
+  const int Wc = vec ? 4 : 1;
+  int U0 = S > 0 ? kSamplesPerBlock / S : 1;
+  U0 = U0 < 1 ? 1 : (U0 > kMaxUnits ? kMaxUnits : U0);
+  // U from the forward's sample budget: the most units, then the widest
+  // channel chunk, within a quarter of the SM's shared memory (four blocks
+  // an SM); else, within all of a block's, the largest U * Cc (the larger U
+  // on a tie). Refused where one unit with one channel group exceeds it.
+  int U = 0, Cc = 0;
+  for (int u = U0; u >= 1 && U == 0; --u)
+    for (int cc = C / Wc * Wc; cc >= Wc && U == 0; cc -= Wc)
+      if (bwd_smem(u, cc, py, px, C, V, CH, CW, t_size).total <= kSmemTarget) U = u, Cc = cc;
+  if (U == 0) {
+    for (int u = U0; u >= 1 && Cc < C; --u) {
+      for (int cc = C / Wc * Wc; cc >= Wc; cc -= Wc) {
+        if (bwd_smem(u, cc, py, px, C, V, CH, CW, t_size).total > kMaxSmem) continue;
+        if ((long long)u * cc > (long long)U * Cc) U = u, Cc = cc;
+        break;
+      }
+    }
+  }
+  if (U == 0) return (int)cudaErrorInvalidValue;  // one unit must fit
   cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(float) * (size_t)B * H * W * C, stream);
   if (err != cudaSuccess || units == 0 || S == 0) return (int)err;
-  int U = kSamplesPerBlock / S;
-  U = U < 1 ? 1 : (U > kMaxUnits ? kMaxUnits : U);
-  while (U > 1 && bwd_smem(U, py, px, C, V, CH, CW, t_size).total > kSmemBytes) --U;
   const unsigned blocks = (unsigned)((units + U - 1) / U);
-  const size_t smem = (size_t)bwd_smem(U, py, px, C, V, CH, CW, t_size).total;
-  if (C == 8 && spt::aligned(g, 16))
-    group_crop_bwd<T, 8><<<blocks, kThreads, smem, stream>>>(g, H, W, C, boxes, units, P, V, CH,
-                                                             CW, patch, U, acc);
+  const size_t smem = (size_t)bwd_smem(U, Cc, py, px, C, V, CH, CW, t_size).total;
+  // above 48 KB only once the function allows it, which is a setting of
+  // the current device: once per instantiation and device (the wrappers
+  // launch only on tensors of the current device)
+  constexpr int kDevices = 64;
+  static bool opened[2][kDevices] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kDevices || !opened[vec][dev]) {
+    err = vec ? cudaFuncSetAttribute(group_crop_bwd<T, 8>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)
+              : cudaFuncSetAttribute(group_crop_bwd<T, 0>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kDevices) opened[vec][dev] = true;
+  }
+  if (vec)
+    group_crop_bwd<T, 8><<<blocks, kBwdThreads, smem, stream>>>(
+        g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, acc);
   else
-    group_crop_bwd<T, 0><<<blocks, kThreads, smem, stream>>>(g, H, W, C, boxes, units, P, V, CH,
-                                                             CW, patch, U, acc);
+    group_crop_bwd<T, 0><<<blocks, kBwdThreads, smem, stream>>>(
+        g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, acc);
+  return (int)cudaGetLastError();
+}
+
+int bwd_launch(const void* g, int dtype, int B, int H, int W, int C, const float* boxes, int P,
+               int V, int CH, int CW, int patch, float* acc, void* out, int stop, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, stop, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int rc =
+      launch_bwd<__nv_bfloat16>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, stop, s);
+  if (rc != 0) return rc;
+  const long long n = (long long)B * H * W * C;
+  if (n == 0) return 0;
+  round_to_bf16<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(acc, n,
+                                                           static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -466,14 +634,16 @@ extern "C" int group_crop_launch(const void* img, int dtype, int B, int H, int W
 extern "C" int group_crop_bwd_launch(const void* g, int dtype, int B, int H, int W, int C,
                                      const float* boxes, int P, int V, int CH, int CW, int patch,
                                      float* acc, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const int rc = launch_bwd<__nv_bfloat16>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, s);
-  if (rc != 0) return rc;
-  const long long n = (long long)B * H * W * C;
-  if (n == 0) return 0;
-  round_to_bf16<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      acc, n, static_cast<__nv_bfloat16*>(out));
-  return (int)cudaGetLastError();
+  return bwd_launch(g, dtype, B, H, W, C, boxes, P, V, CH, CW, patch, acc, out, 0, stream);
+}
+
+// group_crop_bwd_launch with the kernel cut short, for timing its phases:
+// stop 1 ends after the loads, window starts and row sort, stop 2 after both
+// contractions (nothing is added into acc; the output is then not the
+// gradient).
+extern "C" int group_crop_bwd_split_launch(const void* g, int dtype, int B, int H, int W, int C,
+                                           const float* boxes, int P, int V, int CH, int CW,
+                                           int patch, float* acc, void* out, int stop,
+                                           void* stream) {
+  return bwd_launch(g, dtype, B, H, W, C, boxes, P, V, CH, CW, patch, acc, out, stop, stream);
 }

@@ -109,6 +109,7 @@ struct Scratch {
     return 2 * z.n_pad + 4 + round_up(z.n_blocks, 4) + 2 * z.n_tiles + 7 * z.n_slots +
            round_up(z.n_blocks * 2 * (C + 1), 4);
   }
+  __host__ __device__ Scratch() {}
   __host__ Scratch(int* base, long long n_rows, long long n_pts) {
     const Sizes z = sizes(n_rows, n_pts);
     hist = base;
@@ -257,13 +258,11 @@ __global__ void patch_pool_place(const int* __restrict__ rows, const int* __rest
 // One block per kSlots slots; sub-groups of S lanes walk S slots each, W
 // channels a lane, S * W channels a pass. Six blocks fit an SM (<= 80
 // registers, < 37 KB of shared memory), so the main path's ~700 live blocks
-// run in one wave on an H100's 132 SMs. The output is O: f32 for the
-// forward, the source map's type for A-bwd. OneTap (A-bwd) reads one row a
-// slot, weighted by the slot's first weight, for the forward's four taps.
-template <typename T, typename O, int W, int S, bool OneTap>
+// run in one wave on an H100's 132 SMs.
+template <typename T, int W, int S>
 __global__ void __launch_bounds__(kSlots, 6)
 patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, int with_den,
-                  O* __restrict__ out, float* __restrict__ den_out) {
+                  float* __restrict__ out, float* __restrict__ den_out) {
   constexpr int kPass = S * W;
   constexpr int kVec = W > 1 ? 4 : 1;  // channels a thread writes (C % 8 == 0 then)
   __shared__ float runbuf[kSlots][kPass + 1];  // + the weight sum
@@ -356,12 +355,7 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
       }
       const float4 x = w_s[q];
       den = den + (((x.x + x.y) + x.z) + x.w);
-      if (c < C && OneTap) {
-        float t00[W];
-        spt::load_f32<T, W>(src + (long long)pix_s[q] * C + c, t00);
-#pragma unroll
-        for (int j = 0; j < W; ++j) acc[j] = acc[j] + t00[j] * x.x;
-      } else if (c < C) {
+      if (c < C) {
         float t00[W], t01[W], t10[W], t11[W];
         const T* p = src + (long long)pix_s[q] * C + c;
         spt::load_f32<T, W>(p, t00);
@@ -394,7 +388,7 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
       if (side < 0) {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) v[j] = finish(v[j], d, with_den);
-        spt::store_from_f32<O, kVec>(out + (long long)run_row[r] * C + c0 + ch, v);
+        spt::store_from_f32<float, kVec>(out + (long long)run_row[r] * C + c0 + ch, v);
         if (den_out != nullptr && c0 + ch == 0) den_out[run_row[r]] = d;
       } else {
 #pragma unroll
@@ -430,16 +424,16 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
         d = d + __ldcg(cb + 2 * k * stride + C);
       }
       out[(long long)(side == 0 ? first_row : last_row) * C + c] =
-          spt::from_f32<O>(finish(v, d, with_den));
+          finish(v, d, with_den);
       if (den_out != nullptr && c == 0) den_out[side == 0 ? first_row : last_row] = d;
     }
   }
 }
 
-template <typename T, typename O, int W, int S, bool OneTap = false>
+template <typename T, int W, int S>
 cudaError_t gather(const T* src, int Hs, int Ws, int C, const Scratch& s, long long n_blocks,
-                   int with_den, O* out, float* den_out, cudaStream_t stream) {
-  patch_pool_gather<T, O, W, S, OneTap><<<(unsigned)n_blocks, kSlots, 0, stream>>>(
+                   int with_den, float* out, float* den_out, cudaStream_t stream) {
+  patch_pool_gather<T, W, S><<<(unsigned)n_blocks, kSlots, 0, stream>>>(
       src, Hs, Ws, C, s, with_den, out, den_out);
   return cudaGetLastError();
 }
@@ -478,9 +472,9 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // the vector form also stores 4 channels at once: out must be 16-byte aligned
   if (C % 8 == 0 && spt::aligned(src, 16) && spt::aligned(out, 16))
-    err = gather<T, float, 8, 8>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
+    err = gather<T, 8, 8>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
   else
-    err = gather<T, float, 1, 32>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
+    err = gather<T, 1, 32>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
   return (int)err;
 }
 
@@ -503,34 +497,118 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
 // (f32, 4-6 MB), the point tables (4.5 MB) and writes the bf16 source
 // gradient (7.7 / 9.0 MB): 5 us at 3.35 TB/s.
 //
-// Design: the forward's machinery, keyed by source cell. A scatter of 4P
-// entries into the source map becomes a gather with no atomics on features:
-// (1) count the live entries (a non-zero weight, both ids in range, a row
-// with den > 1e-12) per source cell, keeping each entry's rank; (2) the
-// forward's two-level scan of the counts; (3) place each entry's target row
-// and weight over its row's weight sum at offs[cell] + rank, a warp per 32
-// cells writing the unreached cells' zeros; (4) the forward's gather, which
-// splits the work by entries, not by cells (at the main path's inputs one
-// BEV cell takes 1133 entries, the mean is 14), reading one f32 row of g per
-// entry (its one tap), writing each cell once in the source dtype. A
-// first version gave each cell a warp: its gather took 246 us for the BEV
-// map on an NVIDIA H100 80GB HBM3 at 700 W, held by the one warp of the
-// 1133-entry cell (this design's: 48 us).
+// Design: a scatter of 4P entries into the source map becomes a gather with
+// no atomics on features. The entries are sorted by source cell with A's
+// count and scan, and the gather splits the work by entries, never by cells:
+// at the main path's inputs one BEV cell takes 1133 entries, the mean is 14.
+// (1) count: a thread per point, its four corners' live entries (a non-zero
+//     weight, both ids in range, a row with den > 1e-12) counted per cell;
+//     the lanes of a warp that share a cell take one atomic between them
+//     (`__match_any_sync`) and keep their ranks;
+// (2) A's two-level scan of the counts;
+// (3) place: a thread per point writes each live entry's cell and its (row
+//     of g, weight over the row's weight sum) pair, 12 bytes, at
+//     offs[cell] + rank; a warp per 32 cells writes the unreached cells' zeros;
+// (4) gather: a group of G lanes walks 32 consecutive slots, 16 bytes of g's
+//     row a lane where C is a multiple of 64 (G = 16), else one channel a
+//     lane (G = 32). A lane reads one slot's entry and the group shares them
+//     by shuffles, so each lane issues the loads of 8 rows before it sums
+//     them. A run of one cell that lies wholly in the group's slots is
+//     written once, in the source dtype. A run that goes on in the chunk
+//     before or after goes to a carry buffer; the last of its cell's chunks
+//     to finish (a ticket per cell, after a fence) adds the carries in chunk
+//     order and writes the cell.
+// Slots are placed by atomics, so the order of a cell's sum varies from run
+// to run (f32 rounding).
+//
+// What holds it back on an H100 at the main path's shapes: the gather
+// (26-29 us) reads one 256-byte f32 row of g per live entry, 92 MB from the
+// L2, where the bound counts each distinct row once; count and place (24-30
+// us) make 360K atomics that return a rank and as many scattered slot
+// writes. A warp per cell, the first design, took 246 us for the BEV map,
+// held by the one warp of the 1133-entry cell: hence the split by entries.
+
+constexpr int kChunk = 32;  // slots a lane group walks in the A-bwd gather
+constexpr int kBatch = 8;   // rows of g a lane loads before it sums them
+
+// A-bwd's scratch, carved in this order; every part starts 16-byte aligned.
+// Its first parts (hist, done, arrive, local, tile_sum, tile_base) are laid
+// out as A's, so that A's scan runs on `scan`.
+struct BwdScratch {
+  Scratch scan;
+  int4* rank;      // [n_pts] each corner entry's place within its cell, -1 if dead
+  int* slot_cell;  // [n_slots] source cell (flat over B*Hs*Ws)
+  int2* slot_rw;   // [n_slots] row of g (flat over B*T), the weight's bits
+  float* carry;    // [n_chunks, 2, C] a chunk's runs open before (0) and after (1)
+
+  struct Sizes {
+    long long n_pad, n_tiles, n_chunks, n_slots;
+  };
+  __host__ static Sizes sizes(long long n_cells, long long n_pts) {
+    const long long n_pad = round_up(n_cells, kScanTile);
+    const long long n_chunks = (4 * n_pts + kChunk - 1) / kChunk;
+    return {n_pad, round_up(n_pad / kScanTile, 4), n_chunks, n_chunks * kChunk + 4};
+  }
+  __host__ static long long ints(long long n_cells, long long n_pts, int C) {
+    const Sizes z = sizes(n_cells, n_pts);
+    return 2 * z.n_pad + 4 + round_up(z.n_chunks, 4) + 2 * z.n_tiles + 4 * n_pts +
+           3 * z.n_slots + round_up(z.n_chunks * 2 * C, 4);
+  }
+  __host__ BwdScratch(int* base, long long n_cells, long long n_pts) {
+    const Sizes z = sizes(n_cells, n_pts);
+    scan.hist = base;
+    scan.done = scan.hist + z.n_pad;
+    scan.arrive = scan.done + 4;
+    scan.local = scan.arrive + round_up(z.n_chunks, 4);
+    scan.tile_sum = scan.local + z.n_pad;
+    scan.tile_base = scan.tile_sum + z.n_tiles;
+    rank = reinterpret_cast<int4*>(scan.tile_base + z.n_tiles);
+    slot_cell = reinterpret_cast<int*>(rank + n_pts);
+    slot_rw = reinterpret_cast<int2*>(slot_cell + z.n_slots);
+    carry = reinterpret_cast<float*>(slot_rw + z.n_slots);
+  }
+};
 
 __global__ void patch_pool_bwd_count(const int* __restrict__ rows, const int* __restrict__ cols,
                                      const float* __restrict__ vals,
                                      const float* __restrict__ den, int B, int P, int Tn,
-                                     int n_src, Scratch s) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= 4LL * B * P) return;
-  const long long i = e >> 2;
-  const long long b = i / P;
-  const long long row = b * Tn + rows[i];
-  const long long cell = b * n_src + cols[e];
-  bool live = vals[e] != 0.0f && row >= 0 && row < (long long)B * Tn && cell >= 0 &&
-              cell < (long long)B * n_src;
-  if (live && den != nullptr) live = den[row] > 1e-12f;
-  s.rank[e] = live ? atomicAdd(s.hist + cell, 1) : -1;
+                                     int n_src, BwdScratch s) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const bool in = i < (long long)B * P;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  long long b = 0;
+  bool row_live = false;
+  if (in) {
+    b = i / P;
+    const long long row = b * Tn + rows[i];
+    row_live = row >= 0 && row < (long long)B * Tn;
+    if (row_live && den != nullptr) row_live = den[row] > 1e-12f;
+  }
+  // all four corners' atomics go out before any result is waited for
+  int key[4], base[4];
+  unsigned peers[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    long long cell = -1;
+    if (row_live && vals[i * 4 + k] != 0.0f) {
+      cell = b * n_src + cols[i * 4 + k];
+      if (cell >= (long long)B * n_src) cell = -1;
+    }
+    // every lane takes part: a dead entry's key matches no other lane
+    key[k] = cell >= 0 ? (int)cell : -1 - lane;
+    peers[k] = __match_any_sync(kFull, key[k]);
+    base[k] = 0;
+    if (key[k] >= 0 && (peers[k] & below) == 0)
+      base[k] = atomicAdd(s.scan.hist + key[k], __popc(peers[k]));
+  }
+  int r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int first = __shfl_sync(kFull, base[k], __ffs(peers[k]) - 1);
+    r[k] = key[k] >= 0 ? first + __popc(peers[k] & below) : -1;
+  }
+  if (in) s.rank[i] = make_int4(r[0], r[1], r[2], r[3]);
 }
 
 // Also writes the unreached cells' zeros: a warp per 32 cells.
@@ -538,13 +616,13 @@ template <typename O>
 __global__ void patch_pool_bwd_place(const int* __restrict__ rows, const int* __restrict__ cols,
                                      const float* __restrict__ vals,
                                      const float* __restrict__ den, int B, int P, int Tn,
-                                     int n_src, int C, Scratch s, O* __restrict__ out) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+                                     int n_src, int C, BwdScratch s, O* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long n_cells = (long long)B * n_src;
-  const long long cell0 = (e >> 5) * 32;
+  const long long cell0 = (i >> 5) * 32;
   if (cell0 < n_cells) {
     const long long mine = cell0 + (threadIdx.x & 31);
-    const unsigned empty = __ballot_sync(kFull, mine < n_cells && s.hist[mine] == 0);
+    const unsigned empty = __ballot_sync(kFull, mine < n_cells && s.scan.hist[mine] == 0);
     O* dst = out + cell0 * C;
     constexpr int kPer = 16 / (int)sizeof(O);  // values per 16-byte store
     if (C % kPer == 0 && spt::aligned(out, 16)) {
@@ -556,16 +634,123 @@ __global__ void patch_pool_bwd_place(const int* __restrict__ rows, const int* __
         if (empty >> (k / C) & 1) dst[k] = spt::from_f32<O>(0.0f);
     }
   }
-  if (e >= 4LL * B * P) return;
-  const int r = s.rank[e];
-  if (r < 0) return;
-  const long long i = e >> 2;
+  if (i >= (long long)B * P) return;
+  const int4 r4 = s.rank[i];
+  if ((r4.x & r4.y & r4.z & r4.w) < 0) return;  // every corner dead
   const long long b = i / P;
   const long long row = b * Tn + rows[i];
-  const long long at = slot_of(s, b * n_src + cols[e]) + r;
-  s.slot_row[at] = (int)(b * n_src + cols[e]);
-  s.slot_pix[at] = (int)row;
-  s.slot_w[at] = make_float4(den != nullptr ? vals[e] / den[row] : vals[e], 0.0f, 0.0f, 0.0f);
+  const int rk[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (rk[k] < 0) continue;
+    const long long cell = b * n_src + cols[i * 4 + k];
+    const long long at = slot_of(s.scan, cell) + rk[k];
+    const float w = den != nullptr ? vals[i * 4 + k] / den[row] : vals[i * 4 + k];
+    s.slot_cell[at] = (int)cell;
+    s.slot_rw[at] = make_int2((int)row, __float_as_int(w));
+  }
+}
+
+// G lanes a group, W channels a lane, G * W channels a pass; a group per
+// kChunk slots.
+template <typename O, int G, int W>
+__global__ void __launch_bounds__(kThreads, 3)
+patch_pool_bwd_gather(const float* __restrict__ g, int C, BwdScratch s, O* __restrict__ out) {
+  static_assert(G % kBatch == 0 && 32 % G == 0, "a group is whole batches and divides a warp");
+  const int gl = threadIdx.x % G;
+  const unsigned gmask =
+      G == 32 ? kFull : (((1u << G) - 1) << ((threadIdx.x & 31) / G * G));
+  const long long chunk = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / G;
+  const int n_live = s.scan.done[1];
+  const long long q0 = chunk * kChunk;
+  if (q0 >= n_live) return;  // the grid covers every entry, not only the live ones
+  const int n_here = (int)min((long long)kChunk, n_live - q0);
+  const int prev = q0 > 0 ? s.slot_cell[q0 - 1] : -1;
+  const int next = q0 + n_here < n_live ? s.slot_cell[q0 + n_here] : -1;
+  float* carry = s.carry + chunk * 2 * C;
+  int open_cell[2] = {-1, -1};  // the cells of the runs open before and after the chunk
+
+  for (int c0 = 0; c0 < C; c0 += G * W) {
+    const int c = c0 + gl * W;
+    const bool has_c = c < C;
+    float acc[W] = {};
+    int cur = -1;
+    bool first = true;
+    const auto flush = [&](bool last) {
+      const bool open0 = first && cur == prev;
+      const bool open1 = last && cur == next;
+      if (!open0 && !open1) {
+        if (has_c) spt::store_from_f32<O, W>(out + (long long)cur * C + c, acc);
+      } else {
+        const int side = open0 ? 0 : 1;
+        if (has_c) spt::store_from_f32<float, W>(carry + side * C + c, acc);
+        open_cell[side] = cur;
+      }
+      first = false;
+    };
+    for (int base = 0; base < n_here; base += G) {
+      // each lane reads one slot's entry; the group shares them by shuffles
+      const int mine = base + gl;
+      int cell_l = -1, row_l = 0;
+      float w_l = 0.0f;
+      if (mine < n_here) {
+        cell_l = s.slot_cell[q0 + mine];
+        const int2 rw = s.slot_rw[q0 + mine];
+        row_l = rw.x;
+        w_l = __int_as_float(rw.y);
+      }
+      const int n_b = min(G, n_here - base);
+      for (int j0 = 0; j0 < n_b; j0 += kBatch) {
+        float v[kBatch][W];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int row = __shfl_sync(gmask, row_l, j0 + j, G);
+          if (j0 + j < n_b && has_c) {
+            spt::load_f32<float, W>(g + (long long)row * C + c, v[j]);
+          } else {
+#pragma unroll
+            for (int n = 0; n < W; ++n) v[j][n] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (j0 + j >= n_b) break;
+          const int cell = __shfl_sync(gmask, cell_l, j0 + j, G);
+          const float wt = __shfl_sync(gmask, w_l, j0 + j, G);
+          if (cell != cur) {
+            if (cur >= 0) flush(false);
+            cur = cell;
+#pragma unroll
+            for (int n = 0; n < W; ++n) acc[n] = 0.0f;
+          }
+#pragma unroll
+          for (int n = 0; n < W; ++n) acc[n] = acc[n] + wt * v[j][n];
+        }
+      }
+    }
+    flush(true);
+  }
+
+  // a cell open towards a neighbour: the last of its chunks to get here adds
+  // the carries, its first chunk's side 1 and the others' side 0, in order
+  // (the fence makes this group's carries visible first)
+  __threadfence();
+  __syncwarp(gmask);
+  for (int side = 0; side < 2; ++side) {
+    const int cell = open_cell[side];
+    if (cell < 0 || (side == 1 && cell == open_cell[0])) continue;  // one run open both ways
+    const long long first_slot = slot_of(s.scan, cell);
+    const long long k1 = first_slot / kChunk;
+    const long long k2 = (first_slot + s.scan.hist[cell] - 1) / kChunk;
+    int last = 0;
+    if (gl == 0) last = atomicAdd(s.scan.arrive + k1, 1) == (int)(k2 - k1);
+    if (!__shfl_sync(gmask, last, 0, G)) continue;
+    for (int ch = gl; ch < C; ch += G) {
+      float v = __ldcg(s.carry + (2 * k1 + 1) * C + ch);
+      for (long long k = k1 + 1; k <= k2; ++k) v = v + __ldcg(s.carry + 2 * k * C + ch);
+      out[(long long)cell * C + ch] = spt::from_f32<O>(v);
+    }
+  }
 }
 
 template <typename O>
@@ -575,30 +760,33 @@ int launch_bwd(const float* g, const float* den, int B, int Tn, int C, const int
   O* out = static_cast<O*>(out_v);
   const long long n_src = (long long)Hs * Ws;
   const long long n_cells = (long long)B * n_src;
-  const long long n_ent = 4LL * B * P;
+  const long long n_pts = (long long)B * P;
   if (n_cells == 0 || C == 0) return 0;
-  if (n_ent == 0) return (int)cudaMemsetAsync(out, 0, sizeof(O) * n_cells * C, stream);
-  const Scratch::Sizes z = Scratch::sizes(n_cells, n_ent);
-  const Scratch s(scratch, n_cells, n_ent);
+  if (n_pts == 0) return (int)cudaMemsetAsync(out, 0, sizeof(O) * n_cells * C, stream);
+  const BwdScratch::Sizes z = BwdScratch::sizes(n_cells, n_pts);
+  const BwdScratch s(scratch, n_cells, n_pts);
   cudaError_t err = cudaMemsetAsync(
-      s.hist, 0, sizeof(int) * (z.n_pad + 4 + round_up(z.n_blocks, 4)), stream);
+      s.scan.hist, 0, sizeof(int) * (z.n_pad + 4 + round_up(z.n_chunks, 4)), stream);
   if (err != cudaSuccess) return (int)err;
-  const long long ent_blocks = (n_ent + kThreads - 1) / kThreads;
-  patch_pool_bwd_count<<<(unsigned)ent_blocks, kThreads, 0, stream>>>(rows, cols, vals, den, B, P,
-                                                                      Tn, (int)n_src, s);
+  const long long pt_blocks = (n_pts + kThreads - 1) / kThreads;
+  patch_pool_bwd_count<<<(unsigned)pt_blocks, kThreads, 0, stream>>>(rows, cols, vals, den, B, P,
+                                                                     Tn, (int)n_src, s);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int n_tiles = (int)(z.n_pad / kScanTile);
-  patch_pool_scan<<<n_tiles, kScanThreads, 0, stream>>>(s, n_tiles);
+  patch_pool_scan<<<n_tiles, kScanThreads, 0, stream>>>(s.scan, n_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // a thread per entry, and a warp per 32 cells
-  const long long place_blocks = max(ent_blocks, (n_cells + kThreads - 1) / kThreads);
+  // a thread per point, and a warp per 32 cells
+  const long long place_blocks = max(pt_blocks, (n_cells + kThreads - 1) / kThreads);
   patch_pool_bwd_place<O><<<(unsigned)place_blocks, kThreads, 0, stream>>>(
       rows, cols, vals, den, B, P, Tn, (int)n_src, C, s, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // the forward's gather with g as the source, one row a slot
-  if (C % 8 == 0 && spt::aligned(g, 16) && spt::aligned(out, 16))
-    return (int)gather<float, O, 8, 8, true>(g, 1, 1, C, s, z.n_blocks, 0, out, nullptr, stream);
-  return (int)gather<float, O, 1, 32, true>(g, 1, 1, C, s, z.n_blocks, 0, out, nullptr, stream);
+  if (C % 64 == 0 && spt::aligned(g, 16) && spt::aligned(out, 16))
+    patch_pool_bwd_gather<O, 16, 4><<<(unsigned)((z.n_chunks * 16 + kThreads - 1) / kThreads),
+                                      kThreads, 0, stream>>>(g, C, s, out);
+  else
+    patch_pool_bwd_gather<O, 32, 1><<<(unsigned)((z.n_chunks * 32 + kThreads - 1) / kThreads),
+                                      kThreads, 0, stream>>>(g, C, s, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -627,10 +815,9 @@ extern "C" int sparse_pool_patch_launch(const void* src, int dtype, int B, int H
   return (int)cudaErrorInvalidValue;
 }
 
-// int32 scratch of A-bwd: the forward's Scratch keyed by source cell
-// (B * Hs * Ws rows) over the 4 * B * P corner entries.
+// int32 scratch of A-bwd (16-byte aligned): see BwdScratch.
 extern "C" long long sparse_pool_patch_bwd_scratch_ints(int B, int P, int n_src, int C) {
-  return Scratch::ints((long long)B * n_src, 4LL * B * P, C);
+  return BwdScratch::ints((long long)B * n_src, (long long)B * P, C);
 }
 
 // g: [B*T, C] f32 gradient of the pooled output; den: [B*T] f32 weight sums

@@ -51,6 +51,8 @@ SIGNATURES = {
     "group_crop": {
         "group_crop_launch": ([_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P], _I),
         "group_crop_bwd_launch": ([_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+        "group_crop_bwd_split_launch": (
+            [_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     },
 }
 

@@ -262,8 +262,8 @@ def crop_and_resize_group_bwd_kernel(grad: torch.Tensor, boxes_grouped: torch.Te
     lib = kernels.library("group_crop")
     acc = grad.new_empty((b, h, w, c), dtype=torch.float32)
     out = acc if dtype == torch.float32 else grad.new_empty((b, h, w, c))
-    # refused (invalid argument) where one unit's f32 window and coordinates
-    # exceed 48 KB of shared memory
+    # refused (invalid argument) where one unit's gradients, coordinates and
+    # f32 window rows of one channel group exceed 227 KB of shared memory
     rc = lib.group_crop_bwd_launch(grad.data_ptr(), dt, b, h, w, c, boxes_grouped.data_ptr(), p, v,
                                    ch, cw, int(patch), acc.data_ptr(), out.data_ptr(),
                                    kernels.stream_ptr(device))

@@ -11,7 +11,7 @@ Port of ``sparse_pooling_tpu.ops.sparse_pool``:
   tensor the forward launches kernel A (``csrc/sparse_pool_patch.cu``, which
   sorts the points by target row and gathers each row once instead of
   scattering per point) and the backward kernel A-bwd (the same file: the
-  points' corners sorted by source cell, then the forward's gather); on a CPU
+  points' corners sorted by source cell, then a gather by cell); on a CPU
   tensor they run ``sparse_pool_patch_plain`` and
   ``sparse_pool_patch_bwd_plain``. Only the source map takes a gradient:
   the COO comes from the points, not from parameters.

@@ -18,7 +18,7 @@ sub-groups share) among many empty rows, ids -1, T and T + 7 (dropped or
 spilled into the next frame), window starts below 0 and past Hs * Ws, a
 source side of 1, points whose four weights are all 0, C = 4, 6, 33 and 64
 (8 channels a lane in the gather at C = 64, else 1), and a source that is
-not 16-byte aligned. C: C = 3, 5 and 8, H or W
+not 16-byte aligned. C: C = 3, 5, 8 and 32, H or W
 below the patch, V = 1, 8 and 32, boxes running off the map's edges, and an
 image that is not 16-byte aligned (the generic path at C = 8). B: batches
 of 1 and 3 frames (one launch each), C = 3, 5, 8, 32, 64 and 72 (vector and
@@ -33,8 +33,12 @@ JAX package's custom VJPs (A and the f32 crops 1e-5 relative to max(|JAX|,
 the exact crop's plain backward too; on the card each kernel against its
 twin summing in f32 (1e-5 in f32, 1e-2 in bf16: both round one f32 sum,
 taken in another order), over A's cases above (odd C, empty rows, dropped
-ids) and every point in one cell, C's cases above (windows at the map's
-edges), batches of 1 and 3 and gradients that are not 16-byte aligned.
+ids), every point in one cell and a hot cell of 1200 entries among ordinary
+ones, C's cases above (windows at the map's edges; at C = 32, patch 16 a
+unit of C-bwd needs more than 48 KB of shared memory), batches of 1 and 3,
+gradients that are not 16-byte aligned, and C-bwd at the main path's two
+views (512 units a frame of 32 variants, spread over the map or all on one
+window).
 
 JAX is imported inside a fixture, so this file runs where JAX or flax is
 missing: there the CPU parity tests skip and the card tests still run
@@ -188,6 +192,8 @@ C_CASES = {  # name: (H, W, C, patch, V)
     "c8_h_below_patch": (7, 20, 8, 10, 8),
     "c5_w_below_patch": (16, 6, 5, 10, 32),
     "c3_both_below_patch": (5, 4, 3, 12, 8),
+    # C-bwd needs 68 KB of shared memory for one unit here (f32), above 48 KB
+    "c32_p16_v32": (24, 28, 32, 16, 32),
 }
 C_BATCH, C_UNITS = 2, 37
 
@@ -342,7 +348,7 @@ def _a_grad(src, t, seed=7):
 
 
 @pytest.mark.parametrize("divide", [True, False])
-@pytest.mark.parametrize("case", sorted(A_CASES))
+@pytest.mark.parametrize("case", sorted(A_CASES) + ["hot_cell", "one_cell"])
 def test_kernel_a_bwd_plain_matches_jax_vjp_at_edges(jax_ops, case, divide):
     """Rows whose flat id falls outside the batch are moved to 0 here: JAX's
     backward reads the gradient there with ``jnp.take``'s out-of-range fill
@@ -351,7 +357,7 @@ def test_kernel_a_bwd_plain_matches_jax_vjp_at_edges(jax_ops, case, divide):
     import jax
 
     jnp, j_sp, _ = jax_ops
-    src, rows, cols, vals = _a_inputs(case)
+    src, rows, cols, vals = _a_bwd_case(case, 2)
     b = src.shape[0]
     flat = rows + np.arange(b)[:, None] * A_TARGETS
     rows = np.where((flat >= 0) & (flat < b * A_TARGETS), rows, 0).astype(np.int32)
@@ -420,11 +426,16 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 def _a_bwd_case(case: str, batch: int):
     """A's edge inputs, cut or tiled to ``batch`` frames; "one_cell" sends
-    every point's four corners to one source cell of each frame."""
+    every point's four corners to one source cell of each frame; "hot_cell"
+    sends the four corners of frame 0's first 300 points to cell 7, 1200
+    entries (more than A-bwd's gather holds in one block), among ordinary
+    cells."""
 
-    src, rows, cols, vals = _a_inputs("c64" if case == "one_cell" else case)
+    src, rows, cols, vals = _a_inputs("c64" if case in ("one_cell", "hot_cell") else case)
     if case == "one_cell":
         cols[:] = 7
+    if case == "hot_cell":
+        cols[0, :300] = 7
     reps = -(-batch // src.shape[0])
     cut = lambda a: np.concatenate([a] * reps)[:batch]  # noqa: E731
     return cut(src), cut(rows), cut(cols), cut(vals)
@@ -435,7 +446,7 @@ def _a_bwd_case(case: str, batch: int):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("divide", [True, False])
 @pytest.mark.parametrize("batch", [1, 3])
-@pytest.mark.parametrize("case", sorted(A_CASES) + ["one_cell"])
+@pytest.mark.parametrize("case", sorted(A_CASES) + ["hot_cell", "one_cell"])
 def test_kernel_a_bwd_matches_plain_on_card_at_edges(cuda, case, batch, divide, dtype, misaligned):
     src, rows, cols, vals = _a_bwd_case(case, batch)
     r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
@@ -482,3 +493,72 @@ def test_kernel_c_bwd_matches_plain_on_card_at_edges(cuda, case, batch, dtype, m
     assert crop_resize.crop_and_resize_group_bwd_kernel.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape == img.shape
     _assert_rel(got, want, BWD_TOL[dtype])
+
+
+# C-bwd at the main path's shapes: 512 units a frame of V = 32 variants, the
+# BEV view [88, 100, 8] with patch 10 and the image view [96, 312, 8] with
+# patch 12; "spread" scatters the units over the map, "one_window" puts every
+# unit of a frame on one window (the worst overlap: every unit adds into the
+# same cells).
+C_MAIN = {"bev": (88, 100, 8, 10), "image": (96, 312, 8, 12)}  # H, W, C, patch
+C_MAIN_UNITS, C_MAIN_V = 512, 32
+
+
+def _c_main_inputs(view: str, layout: str):
+    h, w, c, patch = C_MAIN[view]
+    rng = np.random.RandomState(h + w + (layout == "one_window"))
+    img = rng.randn(C_BATCH, h, w, c).astype(np.float32)
+    shape = (C_BATCH, C_MAIN_UNITS, 1)
+    if layout == "one_window":
+        cy, cx = np.full(shape, h / 3), np.full(shape, w / 2)
+    else:
+        cy, cx = rng.uniform(0, h, shape), rng.uniform(0, w, shape)
+    v = (C_BATCH, C_MAIN_UNITS, C_MAIN_V)
+    # variants: jittered centres and sizes around the unit's centre
+    cy = cy + rng.uniform(-1.5, 1.5, v)
+    cx = cx + rng.uniform(-1.5, 1.5, v)
+    hy, hx = rng.uniform(0.5, 3.0, v), rng.uniform(0.5, 3.0, v)
+    boxes = np.stack([cy - hy, cx - hx, cy + hy, cx + hx], -1).astype(np.float32)
+    grad = rng.randn(C_BATCH, C_MAIN_UNITS, C_MAIN_V, 3, 3, c).astype(np.float32)
+    return img, boxes, patch, grad
+
+
+# one_window in bf16 is left out of the JAX parity: 512 units sum into each
+# cell in bf16 on both sides, in orders that differ, so the two sums part by
+# several bf16 ulps whatever the code; in f32 they agree
+@pytest.mark.parametrize("view,layout,dtype", [
+    (view, layout, dtype) for view in sorted(C_MAIN) for layout, dtype in
+    (("spread", "float32"), ("spread", "bfloat16"), ("one_window", "float32"))])
+def test_kernel_c_bwd_plain_matches_jax_vjp_at_main_shapes(jax_ops, view, layout, dtype):
+    import jax
+
+    jnp, _, j_crop = jax_ops
+    img, boxes, patch, g = _c_main_inputs(view, layout)
+    jdt = getattr(jnp, dtype)
+    want = _jit_vjp(jax, lambda im: j_crop.crop_and_resize_group_einsum_px(
+        im, jnp.array(boxes), (3, 3), patch=patch), jnp.array(img).astype(jdt), jnp.array(g).astype(jdt))
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    tdt = getattr(torch, dtype)
+    got = crop_resize.crop_and_resize_group_bwd_plain(
+        torch.from_numpy(g).to(tdt), torch.from_numpy(boxes), img.shape, (3, 3), patch, tdt, tdt)
+    assert got.dtype == tdt
+    _assert_rel(got, want, 1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["spread", "one_window"])
+@pytest.mark.parametrize("view", sorted(C_MAIN))
+def test_kernel_c_bwd_matches_plain_on_card_at_main_shapes(cuda, view, layout, dtype):
+    img, boxes, patch, g = _c_main_inputs(view, layout)
+    bx = torch.from_numpy(boxes).to(cuda)
+    gd = torch.from_numpy(g).to(cuda, dtype)
+    before = crop_resize.crop_and_resize_group_bwd_kernel.launches
+    got = crop_resize.crop_and_resize_group_bwd_kernel(gd, bx, img.shape, (3, 3), patch, dtype)
+    want = crop_resize.crop_and_resize_group_bwd_plain(gd, bx, img.shape, (3, 3), patch, dtype)
+    torch.cuda.synchronize()
+    assert crop_resize.crop_and_resize_group_bwd_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == img.shape
+    _assert_rel(got, want, BWD_TOL[dtype])
+    untouched = want.float().abs().sum(-1) == 0  # cells no window reaches stay exactly 0
+    assert bool((got[untouched] == 0).all())
