@@ -48,8 +48,22 @@ non-zero):
 7. one training step of the narrow parity config on the card against the
    CPU, with stage-2 positives sampled: losses and every parameter's
    gradient;
-8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+8. the KITTI data path: a tree of 20 frames written from seeds under the
+   git-ignored ``build/``; for each of its 16 training frames the native PNG
+   decode against the image drawn (byte for byte) and the native points
+   against ``load_points_filtered``; one batch's host load split by part;
+   then ``Trainer(cfg)`` at full width over the tree (its ``KittiDataset``
+   with shuffle and augmentation, a ``DevicePrefetcher`` of depth 2) for 4
+   steps, 2 epochs: finite losses, the ids in epoch order, A, C, A-bwd and
+   C-bwd twice a step (counts read around exactly these steps), each step's
+   time beside phase 6's, the prefetcher's load, put and wait;
+9. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
+the main path's inputs and kernel C on a unit above 48 KB of shared memory;
+phase 6 launches C-bwd twice on each recorded input and requires the same
+bits.
 """
 
 from __future__ import annotations
@@ -68,7 +82,8 @@ import torch
 from sparse_pooling_tpu_torch import kernels, weights
 from sparse_pooling_tpu_torch.configs import AreaExtents, cars_pyramid_config
 from sparse_pooling_tpu_torch.data.sparse_matrix import build_sparse_pooling_input
-from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame, trim_points_to_bucket
+from sparse_pooling_tpu_torch.data.pointcloud import trim_points_to_bucket
+from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool
 from sparse_pooling_tpu_torch.runtime import checkpoint as ckpt_mod
@@ -397,6 +412,20 @@ def kernel_a_phase(calls, flush):
             print(f"  A {tuple(src.shape)}->T={t} {str(dtype):15s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
             if dtype == src.dtype:
                 res["max_abs_err"] = max(res["max_abs_err"], err)
+        # accum_dtype="bfloat16": the same bf16 sums in the same (points')
+        # order as the twin; a point's four products and weights sum in
+        # another f32 order, which can flip one rounding
+        got, got_den = sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True, "bfloat16")
+        want, want_den = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, t, True, "bfloat16")
+        err, rel = compare(got, want, 2e-2, f"kernel A {tuple(src.shape)} bf16 accumulation")
+        compare(got_den, want_den, 2e-2, f"kernel A {tuple(src.shape)} bf16 accumulation weight sums")
+        same = (got == want).float().mean().item()
+        bf16_ms = median_ms(lambda: sparse_pool.sparse_pool_patch_kernel(
+            src, rows, cols, vals, t, True, "bfloat16"), spin=True)
+        print(f"  A {tuple(src.shape)}->T={t} accum_dtype=bfloat16 max_abs_err {err:.3e} rel {rel:.3e} "
+              f"(tol 2e-2 rel); {same:.6f} of the outputs equal the twin's bit for bit; "
+              f"{bf16_ms:.4f} ms device (off the main path)")
+
         def kernel_call():
             return sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True)
 
@@ -506,6 +535,24 @@ def kernel_c_phase(calls, flush):
               f"pixels read, {lin.numel()} window pixels written)")
         add_times(res, kern, plain, lib)
     return res, windows
+
+
+def kernel_c_wide_unit(device) -> None:
+    """Kernel C where one f32 unit needs more than 48 KB of shared memory
+    (C = 32, patch 20, V = 32: a 51 KB window): it must launch and agree with
+    its twin to 1e-5 relative."""
+
+    h, w, c, patch, v = 28, 32, 32, 20, 32
+    g = torch.Generator().manual_seed(3)
+    img = torch.randn(2, h, w, c, generator=g).to(device)
+    centre = torch.rand(2, 37, 1, 2, generator=g) * torch.tensor([h + 6.0, w + 6.0]) - 3.0
+    half = 0.2 + torch.rand(2, 37, v, 2, generator=g) * 3.8
+    boxes = torch.cat([centre - half, centre + half], -1).contiguous().to(device)
+    got = crop_resize.crop_and_resize_group_kernel(img, boxes, (3, 3), patch)
+    want = crop_resize.crop_and_resize_group_plain(img, boxes, (3, 3), patch)
+    err, rel = compare(got, want, 1e-5, "kernel C, a unit above 48 KB")
+    print(f"  C {tuple(img.shape)} patch {patch} V {v} float32 (a {patch * patch * c * 4} B window a "
+          f"unit, above 48 KB): max_abs_err {err:.3e} rel {rel:.3e} (tol 1e-5 rel)")
 
 
 ELL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}  # relative to max(|twin|, 1)
@@ -700,9 +747,10 @@ def load_bwd_baseline(directory: str):
     """Build another commit's ``sparse_pool_patch.cu`` and ``group_crop.cu``
     from ``directory`` (with its ``common.cuh``; the backward C interface
     ``sparse_pool_patch_bwd_launch`` / ``group_crop_bwd_launch`` of the
-    port) with the port's flags under other library names, both compiles at
-    once, and return callers of those backward kernels that take the
-    wrappers' arguments: ``(a_bwd, c_bwd)``."""
+    port, C-bwd's as it was before its fixed point: an f32 scratch buffer
+    that is also the f32 gradient) with the port's flags under other library
+    names, both compiles at once, and return callers of those backward
+    kernels that take the wrappers' arguments: ``(a_bwd, c_bwd)``."""
 
     import ctypes
     import hashlib
@@ -763,13 +811,14 @@ def c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype) -> str:
     kernel run whole and cut short after its loads, window starts and row
     sort (stop 1) and after both contractions (stop 2,
     ``group_crop_bwd_split_launch``); the phases are the differences, the
-    memset and the bf16 rounding pass their own launches."""
+    memset, the max |g| pass and the pass out of the fixed point their own
+    launches."""
 
     lib = kernels.library("group_crop")
     b, h, w, c = image_shape
     p, v = boxes.shape[1:3]
-    acc = grad.new_empty((b, h, w, c), dtype=torch.float32)
-    out = acc if dtype == torch.float32 else grad.new_empty((b, h, w, c))
+    acc = grad.new_empty((b * h * w * c + 1,), dtype=torch.int64)
+    out = grad.new_empty((b, h, w, c))
     dev = grad.get_device()
 
     def run(stop):
@@ -792,7 +841,7 @@ def c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype) -> str:
     rest = "; ".join(f"{name} {us:.2f} us" for name, us in parts[0].items()
                      if not name.startswith("group_crop_bwd"))
     return (f"kernel {k0:.2f} us = load, window starts and row sort {k1:.2f} + both contractions "
-            f"{k2 - k1:.2f} + global reduction (atomics) {k0 - k2:.2f}; {rest}")
+            f"{k2 - k1:.2f} + global reduction (int64 atomics) {k0 - k2:.2f}; {rest}")
 
 
 def earlier_bwd(res, label, call, want, flush) -> None:
@@ -913,6 +962,14 @@ def kernel_c_bwd_phase(calls, flush, baseline=None):
         def kernel_call():
             return crop_resize.crop_and_resize_group_bwd_kernel(grad, boxes, image_shape, crop_hw, patch, dtype)
 
+        for dt in (dtype, torch.float32):  # two launches, the same bits
+            gd = grad.to(dt)
+            runs = [crop_resize.crop_and_resize_group_bwd_kernel(gd, boxes, image_shape, crop_hw, patch, dt)
+                    for _ in range(2)]
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            check(torch.equal(runs[0].view(bits), runs[1].view(bits)),
+                  f"{label} {dt}: two launches on the same inputs differ")
+        print(f"  {label}: two launches on the same inputs give the same bits, in {dtype} and float32")
         kern = timings(kernel_call, flush)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
         print(f"  {label} phases per call (L2-warm): "
@@ -1017,8 +1074,8 @@ LOSS_KEYS = ("total", "rpn_objectness", "rpn_regression", "cls", "reg", "orienta
 
 
 def training_phase(device, flush, bwd_baseline=None):
-    """Phase 6; returns the A-bwd and C-bwd results and their launches in
-    the Trainer's 6 steps."""
+    """Phase 6; returns the A-bwd and C-bwd results, their launches in the
+    Trainer's 6 steps and the median CUDA-event time of steps 2-6."""
 
     ext = AreaExtents()
     cfg = train_config(cars_pyramid_config().model, batch_size=BATCH, checkpoint_interval=TRAIN_STEPS,
@@ -1032,7 +1089,8 @@ def training_phase(device, flush, bwd_baseline=None):
     opt, sched = tr.build_optimizer(model.parameters(), cfg)
     anchors = pl.static_anchor_grid(cfg.model, ext, device=device)
     step = tr.make_train_step(model, opt, sched, anchors, cfg, ext)
-    batch = tr.to_device(next(dataset.batches(BATCH))[0], device)
+    batch = pl.RawSample(*(None if a is None else torch.from_numpy(a).to(device)
+                           for a in next(dataset.batches(BATCH))[0]))
     gen = torch.Generator(device=device).manual_seed(0)
     a_bwd, c_bwd = [], []
     with recording(sparse_pool, "sparse_pool_patch_bwd_kernel", a_bwd), \
@@ -1121,7 +1179,7 @@ def training_phase(device, flush, bwd_baseline=None):
           f"{totals[-1]:.5f} after; trace " + " ".join(f"{t:.4f}" for t in totals))
     check(totals[-1] < totals[0], "the loss on the fixed batch did not fall")
     shutil.rmtree(workdir)
-    return res_a_bwd, res_c_bwd, launches
+    return res_a_bwd, res_c_bwd, launches, step_ms
 
 
 def train_card_vs_cpu_phase() -> None:
@@ -1169,6 +1227,143 @@ def train_card_vs_cpu_phase() -> None:
     print(f"  training card vs CPU: every parameter's gradient within {rel:.3e} of its largest "
           f"CPU gradient (tol 1e-4: f32 sums in other orders, atomics in kernels A and C-bwd)")
     check(rel <= 1e-4, f"training card vs cpu: gradients differ by {rel:.3e} relative")
+
+
+KITTI_FRAMES, KITTI_VAL, KITTI_STEPS = 20, range(16, 20), 4  # 16 training frames: 2 batches an epoch
+
+
+def host_load_split(ds, ids, epoch: int) -> str:
+    """One batch's host load per frame (ms), by part: the PNG decode into a
+    canvas, the points (calibration, native filter, pad or subsample), the
+    augmentation (``load_sample`` with it less without), the rest of
+    ``load_sample``; and the whole batch as ``batches`` yields it."""
+
+    from sparse_pooling_tpu_torch.data import calib as calib_mod
+    from sparse_pooling_tpu_torch.data import pointcloud
+    from sparse_pooling_tpu_torch.data.dataset import augment_seed
+    from sparse_pooling_tpu_torch.native import sample_loader
+
+    mc = ds.model_cfg
+    canvas = ds.alloc_image_batch(1)[0]
+
+    def per_frame(fn) -> float:
+        t0 = time.perf_counter()
+        for sid in ids:
+            fn(sid)
+        return 1e3 * (time.perf_counter() - t0) / len(ids)
+
+    def points(sid):
+        cal = calib_mod.read_calibration(ds._path("calib", sid, ".txt"))
+        pts = sample_loader.load_points(ds._path("velodyne", sid, ".bin"), cal.velo_to_rect(), cal.p2,
+                                        (375, 1242), ds.extents)
+        pointcloud.pad_or_subsample(pts, mc.sparse_pool.max_points, seed=int(sid))
+
+    decode = per_frame(lambda sid: sample_loader.decode_png_canvas(
+        ds._path("image_2", sid, ".png"), mc.image.height, mc.image.width, out=canvas))
+    pts = per_frame(points)
+    plain = per_frame(lambda sid: ds.load_sample(sid, None, image_out=canvas))
+    augmented = per_frame(lambda sid: ds.load_sample(sid, augment_seed(ds.cfg.seed, epoch, sid),
+                                                     image_out=canvas))
+    t0 = time.perf_counter()
+    next(ds.batches(len(ids), epoch))
+    whole = 1e3 * (time.perf_counter() - t0) / len(ids)
+    return (f"decode {decode:.2f}, points {pts:.2f}, augmentation {augmented - plain:.2f}, rest "
+            f"{plain - decode - pts:.2f}; load_sample with augmentation {augmented:.2f}; a whole batch "
+            f"from batches() {whole:.2f} ms a frame (host clock, one thread, {len(ids)} frames)")
+
+
+def kitti_phase(device, frame_step_ms: float) -> None:
+    """Phase 8: a KITTI tree written from seeds, the native loader against
+    what was drawn and its numpy twin, then ``Trainer(cfg)`` at full width
+    over the tree (its own ``KittiDataset``, shuffle and augmentation,
+    ``DevicePrefetcher`` of depth 2) for 4 steps, 2 epochs."""
+
+    from sparse_pooling_tpu_torch.data import calib as calib_mod
+    from sparse_pooling_tpu_torch.data import pointcloud, synthetic
+    from sparse_pooling_tpu_torch.data.dataset import KittiDataset
+    from sparse_pooling_tpu_torch.native import sample_loader
+
+    root = str(kernels.BUILD_DIR.parent / "chip_smoke_kitti")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.write_kitti_tree(root, num_frames=KITTI_FRAMES, val_frames=KITTI_VAL)
+    print(f"[kitti] wrote a tree of {KITTI_FRAMES} frames (val {KITTI_VAL.start}-{KITTI_VAL.stop - 1}) "
+          f"under build/ in {time.perf_counter() - t0:.2f} s")
+    base = cars_pyramid_config()
+    cfg = dataclasses.replace(
+        base, dataset=dataclasses.replace(base.dataset, root=root),
+        train=dataclasses.replace(base.train, batch_size=BATCH, summary_interval=1, prefetch_depth=2))
+    check(cfg.dataset.shuffle and cfg.dataset.aug_flip and cfg.dataset.aug_pca_jitter,
+          "the cars preset no longer shuffles and augments")
+    ext = AreaExtents()
+    ds = KittiDataset(cfg.dataset, cfg.model, ext)
+    check(len(ds) == KITTI_FRAMES - len(KITTI_VAL), f"{len(ds)} training frames")
+    n_points = []
+    for sid in ds.sample_ids:
+        _, _, img = synthetic.make_frame(int(sid))
+        canvas, (h, w) = sample_loader.decode_png_canvas(ds._path("image_2", sid, ".png"),
+                                                         cfg.model.image.height, cfg.model.image.width)
+        check((h, w) == img.shape[:2] and np.array_equal(canvas[:h, :w], img)
+              and not canvas[h:].any() and not canvas[:, w:].any(),
+              f"frame {sid}: the native decode differs from the image drawn")
+        cal = calib_mod.read_calibration(ds._path("calib", sid, ".txt"))
+        velo = ds._path("velodyne", sid, ".bin")
+        nat = sample_loader.load_points(velo, cal.velo_to_rect(), cal.p2, (h, w), ext)
+        ref = pointcloud.load_points_filtered(velo, cal, (h, w), ext)
+        check(nat is not None and nat.dtype == ref.dtype and np.array_equal(nat, ref),
+              f"frame {sid}: native points differ from load_points_filtered")
+        n_points.append(len(nat))
+    print(f"[kitti] {len(ds)} training frames: native decode equals the drawn image byte for byte, "
+          f"native points equal load_points_filtered ({min(n_points)}-{max(n_points)} points a frame)")
+    print(f"[kitti] host load of one batch: {host_load_split(ds, ds.epoch_ids(0)[:BATCH], 0)}")
+
+    workdir = str(kernels.BUILD_DIR.parent / "chip_smoke_kitti_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = tr.Trainer(cfg, extents=ext, workdir=workdir, device=device)
+    check(isinstance(trainer.dataset, KittiDataset), "Trainer(cfg) did not build a KittiDataset")
+    seen = []
+    batches = trainer.dataset.batches
+
+    def recorded(*args, **kwargs):
+        for arrays, ids in batches(*args, **kwargs):
+            seen.append(list(ids))
+            yield arrays, ids
+
+    trainer.dataset.batches = recorded
+    torch.cuda.synchronize()
+    reset_counts()
+    state = trainer.train(max_steps=KITTI_STEPS)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(state.step == KITTI_STEPS, f"the KITTI trainer stopped at step {state.step}")
+    recs = read_scalars(f"{workdir}/summaries")
+    check([r["step"] for r in recs] == list(range(1, KITTI_STEPS + 1)), "missing KITTI step summaries")
+    for r in recs:
+        terms = ", ".join(f"{k} {r[k]:.5f}" for k in LOSS_KEYS)
+        print(f"[kitti] step {r['step']}: {terms}; grad_norm {r['grad_norm']:.4f}; num_rpn_pos "
+              f"{r['num_rpn_pos']:.2f} num_s2_pos {r['num_s2_pos']:.2f}; step {r['step_ms']:.2f} ms "
+              f"(CUDA events) against the FrameDataset step's {frame_step_ms:.2f} ms (phase 6 median); "
+              + ("the worker loaded the epoch's next batch during this step" if r["step"] % 2
+                 else "the worker was idle (its epoch loaded)"))
+        check(all(np.isfinite(r[k]) for k in (*LOSS_KEYS, "grad_norm")), f"KITTI step {r['step']}: non-finite")
+    expected = [ids[i:i + BATCH] for ids in (ds.epoch_ids(0), ds.epoch_ids(1)) for i in (0, BATCH)]
+    check(ds.epoch_ids(0) != ds.epoch_ids(1), "the epochs were not shuffled")
+    check(seen == expected, f"ids consumed {seen}, not epoch_ids(0) then epoch_ids(1) in batches of {BATCH}")
+    for name in ("A", "C", "A-bwd", "C-bwd"):
+        check(launches[name] == 2 * KITTI_STEPS,
+              f"kernel {name}: {launches[name]} launches in {KITTI_STEPS} KITTI steps, not 2 a step")
+    t = trainer.input_timings
+    kitti_ms = float(np.median([r["step_ms"] for r in recs[1:]]))
+    print(f"[kitti] {KITTI_STEPS} steps of batch {BATCH} over 2 epochs; ids in epoch order; launches "
+          f"per step " + ", ".join(f"{k} {v / KITTI_STEPS:g}" for k, v in launches.items()))
+    print(f"[kitti] step time, median of steps 2-{KITTI_STEPS}: {kitti_ms:.2f} ms from the tree vs "
+          f"{frame_step_ms:.2f} ms from frames in memory (phase 6), {kitti_ms - frame_step_ms:+.2f} ms")
+    print(f"[kitti] prefetcher over {len(seen)} batches: load {t['load']:.3f} s, put {t['put']:.3f} s "
+          f"(worker thread); the step waited on the queue {t['waits']} times, {t['wait']:.3f} s in all "
+          f"(each epoch's first batch waits for its loader to start)")
+    del trainer, state
+    shutil.rmtree(workdir)
+    shutil.rmtree(root)
 
 
 def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: str | None = None) -> int:
@@ -1219,6 +1414,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
     res_a = kernel_a_phase(a_calls, flush)
     res_c, windows = kernel_c_phase(c_calls, flush)
+    kernel_c_wide_unit(device)
     floor = timings(lambda: torch.cuda._sleep(0))
     print(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) {timing_text(floor)}; "
           f"{device_split(lambda: torch.cuda._sleep(0))} kernel execution (torch.profiler)")
@@ -1311,12 +1507,16 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
 
     # 6. training at full width: backward kernels, Trainer, resume, fixed batch
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
-    res_a_bwd, res_c_bwd, train_launches = training_phase(device, flush, bwd_baseline)
+    res_a_bwd, res_c_bwd, train_launches, frame_step_ms = training_phase(device, flush, bwd_baseline)
     del flush
 
     # 7. one training step on the card against the CPU
     print("[training card vs CPU]")
     train_card_vs_cpu_phase()
+
+    # 8. training from a KITTI tree through the native loader and the prefetcher
+    print("[kitti data path]")
+    kitti_phase(device, frame_step_ms)
 
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",

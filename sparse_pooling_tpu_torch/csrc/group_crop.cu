@@ -31,7 +31,9 @@
 // coordinates and storing 2 bytes) and reached 4% of the bound.
 //
 // Design: a block of 256 threads takes U units (U = 8 on the main path, so
-// 2304 samples). (1) One thread per (unit, variant) reads its box and writes
+// 2304 samples) within 48 KB of shared memory; where one unit needs more (a
+// wide f32 window), a block takes as many as fit in 227 KB, opened once per
+// device. (1) One thread per (unit, variant) reads its box and writes
 // the unit's ys and xs to shared memory, one divide per axis. (2) One thread
 // per unit sums the midpoints in v order and writes the window start. (3) The
 // windows go to shared memory in the image dtype with 16-byte cp.async copies
@@ -49,7 +51,9 @@ constexpr int kThreads = 256;
 constexpr int kSamplesPerBlock = 2304;  // 8 units of 32 variants x 3 x 3
 constexpr int kMaxUnits = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSmemBytes = 48 * 1024;
+constexpr int kSmemBytes = 48 * 1024;     // a block's target: several blocks an SM
+constexpr int kMaxSmem = 227 * 1024;      // dynamic shared memory a block may take
+constexpr int kDevices = 64;              // devices whose opened limit is remembered
 
 __device__ __forceinline__ float tent(float d) { return fmaxf(0.0f, 1.0f - fabsf(d)); }
 
@@ -204,13 +208,32 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
   const int py = patch < H ? patch : H;
   const int px = patch < W ? patch : W;
   const int per_unit = unit_smem<T>(py, px, C, V, CH, CW);
-  if (per_unit > kSmemBytes) return (int)cudaErrorInvalidValue;  // one unit must fit
+  if (per_unit > kMaxSmem) return (int)cudaErrorInvalidValue;  // one unit must fit
   int U = kSamplesPerBlock / S;
   U = U < 1 ? 1 : (U > kMaxUnits ? kMaxUnits : U);
-  if (U * per_unit > kSmemBytes) U = kSmemBytes / per_unit;
+  // U within 48 KB where a unit fits there, else as many as fit in 227 KB
+  const int budget = per_unit > kSmemBytes ? kMaxSmem : kSmemBytes;
+  if (U * per_unit > budget) U = budget / per_unit;
   const unsigned blocks = (unsigned)((units + U - 1) / U);
   const size_t smem = (size_t)U * per_unit;
-  if (C == 8 && spt::aligned(img, 16) && spt::aligned(out, 16))
+  const bool vec = C == 8 && spt::aligned(img, 16) && spt::aligned(out, 16);
+  if (smem > (size_t)kSmemBytes) {
+    // above 48 KB only once the function allows it, a setting of the
+    // current device: once per instantiation and device
+    static bool opened[2][kDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kDevices || !opened[vec][dev]) {
+      err = vec ? cudaFuncSetAttribute(group_crop<T, 8>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)
+                : cudaFuncSetAttribute(group_crop<T, 0>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kDevices) opened[vec][dev] = true;
+    }
+  }
+  if (vec)
     group_crop<T, 8><<<blocks, kThreads, smem, stream>>>(img, H, W, C, boxes, units, P, V, CH,
                                                          CW, patch, U, out);
   else
@@ -230,10 +253,15 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
 //
 // Bound on an H100: bytes. At the main path's shapes (4096 units of V = 32,
 // 3 x 3 samples, C = 8 bf16 a view) a call reads 18.9 MB of output gradient
-// and writes the [B, H, W, C] image gradient once.
+// and writes the [B, H, W, C] image gradient once. The fixed point costs the
+// max pass's read of the gradient and an int64 buffer twice the size of the
+// f32 one it replaced.
 //
 // Design: the reference's two contractions, each with every thread of the
-// block busy. A block of 256 threads takes U units: as many as the
+// block busy, and sums in a fixed point so that the result does not depend
+// on the order of the atomics. (0) A first pass takes max |g| over the
+// gradient (the fixed point's scale, below). A block of 256 threads takes
+// U units: as many as the
 // forward's sample budget allows within a quarter of an SM's shared memory
 // (56 KB), so that four blocks share an SM; on the main path that is 2 units
 // with their channels in two chunks of 4. (Where one unit needs more, the
@@ -254,17 +282,19 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
 // (4) y next: a thread per (unit, run of sorted rows, window column l,
 //     channel group) walks its run in tap order with the cells (j0, l) and
 //     (j0 + 1, l) of the current tap in registers, so each g_t value is read
-//     once, and adds each cell its rows are past into an f32 [B, H, W, C]
-//     buffer (zeroed first) with a global atomic, 16 bytes where C = 8. The
-//     runs split each unit's rows so that the block's threads are all busy
-//     and each walks as many rows; a cell that spans two runs meets its rest
-//     in the buffer.
+//     once, and adds each cell its rows are past into an int64 [B, H, W, C]
+//     buffer (zeroed first) with a global atomic, as round(sum * 2^shift)
+//     (`fixed_shift`: no sum can overflow). The runs split each unit's rows
+//     so that the block's threads are all busy and each walks as many rows;
+//     a cell that spans two runs meets its rest in the buffer.
 // Where g_t of all C channels does not fit beside the gradients, (3) and (4)
-// run once per chunk of channels. (5) For a bf16 image one pass rounds the
-// buffer once to bf16 (an f32 image's gradient is the buffer itself). Sums
-// meet by atomics, so their order varies from run to run (f32 rounding). The
-// reference sums a bf16 map's gradient in bf16 (`_acc_dtype`,
-// crop_resize.py:117-129); this kernel sums in f32 and rounds once.
+// run once per chunk of channels. (5) One pass turns the fixed-point sums
+// into the gradient's dtype. Each thread's f32 partial sums are taken in an
+// order fixed by the inputs (the sorted rows), and integer addition is
+// associative, so two launches on the same inputs give the same bits
+// whatever order the atomics take. The reference sums a bf16 map's gradient
+// in bf16 (`_acc_dtype`, crop_resize.py:117-129); this kernel sums the f32
+// partials exactly (to 2^-40 of max |g| at the main path) and rounds once.
 //
 // What holds it back on an H100 is the two contractions, not the atomics:
 // PERF.md section 6 has chip_smoke.py's phase split at the main path's
@@ -276,7 +306,29 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
 // staged gradients, with no g_t at all.
 
 constexpr int kBwdThreads = 256;
-constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may take
+
+// The fixed point of C-bwd's sums: a value x is held as round(x * 2^shift)
+// in an int64, with shift = 62 - kbits - e, where max |g| < 2^e and the
+// samples of the call number at most 2^kbits. Each sample's tent weights
+// over the window sum to at most 1, so a cell's sum in a channel is below
+// max |g| * samples < 2^(e + kbits), and times 2^shift below 2^62: no sum or
+// partial sum can overflow the int64. One unit of the fixed point is
+// max |g| * 2^(kbits - 61) or less, 2^-40 of max |g| at the main path's
+// 1.2M samples. Returns false where max |g| is not finite.
+__device__ __forceinline__ bool fixed_shift(const unsigned* amax_bits, int kbits, int* shift) {
+  const float amax = __uint_as_float(*amax_bits);
+  if (!(amax <= 3.402823466e38f)) return false;
+  int e = 0;
+  frexpf(amax, &e);  // amax < 2^e (e = 0 for amax = 0)
+  *shift = 62 - kbits - e;
+  return true;
+}
+
+__device__ __forceinline__ unsigned long long to_fixed(float x, int shift) {
+  // exact scaling (the result lies below 2^62), then one rounding to an
+  // integer; two's complement makes the unsigned atomic add signed sums
+  return (unsigned long long)__float2ll_rn(ldexpf(x, shift));
+}
 constexpr int kSmemTarget = 56 * 1024;  // four blocks an SM
 
 // dst[0..N) += w * g[0..N), one vector load and store of N floats.
@@ -329,7 +381,8 @@ template <typename T, int CV>
 __global__ void __launch_bounds__(kBwdThreads, 4)
 group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __restrict__ boxes,
                int units, int P, int V, int CH, int CW, int patch, int U, int Cc, int stop,
-               float* __restrict__ acc) {
+               const unsigned* __restrict__ amax_bits, int kbits,
+               unsigned long long* __restrict__ acc) {
   const int C = CV > 0 ? CV : c_rt;
   constexpr int Wc = CV > 0 && CV % 4 == 0 ? 4 : 1;  // channels a thread carries
   const int py = min(patch, H), px = min(patch, W);
@@ -440,6 +493,8 @@ group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __r
   if constexpr (CV > 0) __pipeline_wait_prior(0);
   __syncthreads();
   if (stop == 1) return;
+  int shift;
+  if (!fixed_shift(amax_bits, kbits, &shift)) return;  // the finishing pass writes NaN
 
   for (int c0 = 0; c0 < C; c0 += Cc) {
     const int cn = min(Cc, C - c0);
@@ -486,21 +541,20 @@ group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __r
       const YRow* ru = rows + u * R;
       const float* src = gt + (size_t)u * R * gs + l * Cc + c;
       const int b = (unit0 + u) / P;
-      float* col = acc + (((size_t)b * H + starts[2 * u]) * W + starts[2 * u + 1] + l) * C + c0 + c;
+      unsigned long long* col =
+          acc + (((size_t)b * H + starts[2 * u]) * W + starts[2 * u + 1] + l) * C + c0 + c;
       const auto add_cell = [&](int j, const float (&a)[Wc]) {
         bool any = false;
 #pragma unroll
         for (int n = 0; n < Wc; ++n) any |= a[n] != 0.0f;
         if (!any) return;
-        float* cell = col + (size_t)j * W * C;
+        unsigned long long* cell = col + (size_t)j * W * C;
         if (stop == 2) {
-          if (a[0] == -1.0e-38f) cell[0] = a[Wc - 1];  // keeps the sums live, never true in practice
+          if (a[0] == -1.0e-38f) cell[0] = __float_as_uint(a[Wc - 1]);  // keeps the sums live, never true in practice
           return;
         }
-        if constexpr (Wc == 4)
-          atomicAdd(reinterpret_cast<float4*>(cell), make_float4(a[0], a[1], a[2], a[3]));
-        else
-          atomicAdd(cell, a[0]);
+#pragma unroll
+        for (int n = 0; n < Wc; ++n) atomicAdd(cell + n, to_fixed(a[n], shift));
       };
       float a0[Wc] = {}, a1[Wc] = {};  // cells (cur, l) and (cur + 1, l)
       int cur = ru[q0].j0;
@@ -531,17 +585,89 @@ group_crop_bwd(const T* __restrict__ g, int H, int W, int c_rt, const float* __r
   }
 }
 
-__global__ void round_to_bf16(const float* __restrict__ acc, long long n,
-                              __nv_bfloat16* __restrict__ out) {
+// max |g| over the gradient, as the bits of a non-negative float (their
+// order as unsigned ints is the floats' order; a NaN's bits exceed inf's),
+// combined by atomicMax into *bits (zeroed first)
+template <typename T>
+__global__ void amax_abs(const T* __restrict__ g, long long n, unsigned* __restrict__ bits) {
+  constexpr int kPer = 16 / (int)sizeof(T);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long nv = spt::aligned(g, 16) ? n / kPer : 0;
+  unsigned m = 0;
+  for (long long i = t; i < nv; i += stride) {
+    float v[kPer];
+    spt::load_f32<T, kPer>(g + i * kPer, v);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) m = max(m, __float_as_uint(fabsf(v[k])));
+  }
+  for (long long i = nv * kPer + t; i < n; i += stride)
+    m = max(m, __float_as_uint(fabsf(spt::to_f32(g[i]))));
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) m = max(m, __shfl_xor_sync(kFull, m, d));
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(bits, m);
+}
+
+// The fixed-point sums back to the gradient's dtype: one int64 to double
+// conversion and an exact scaling, then one rounding to T. NaN everywhere
+// where the gradient held a non-finite value.
+template <typename T>
+__global__ void finish_fixed(const unsigned long long* __restrict__ acc, long long n,
+                             const unsigned* __restrict__ amax_bits, int kbits,
+                             T* __restrict__ out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(acc[i]);
+  if (i >= n) return;
+  int shift;
+  const float v = fixed_shift(amax_bits, kbits, &shift)
+                      ? (float)ldexp((double)(long long)acc[i], -shift)
+                      : __int_as_float(0x7fc00000);
+  out[i] = spt::from_f32<T>(v);
+}
+
+template <typename T>
+cudaError_t launch_bwd_main(const T* g, int B, int H, int W, int C, const float* boxes, int P,
+                            int V, int CH, int CW, int patch, int U, int Cc, int stop,
+                            const unsigned* amax_bits, int kbits, unsigned long long* acc,
+                            cudaStream_t stream) {
+  const int units = B * P;
+  const int py = patch < H ? patch : H;
+  const int px = patch < W ? patch : W;
+  const int t_size = (int)sizeof(T);
+  const bool vec = C == 8 && spt::aligned(g, 16);
+  cudaError_t err;
+  const unsigned blocks = (unsigned)((units + U - 1) / U);
+  const size_t smem = (size_t)bwd_smem(U, Cc, py, px, C, V, CH, CW, t_size).total;
+  // above 48 KB only once the function allows it, which is a setting of
+  // the current device: once per instantiation and device (the wrappers
+  // launch only on tensors of the current device)
+  static bool opened[2][kDevices] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices || !opened[vec][dev]) {
+    err = vec ? cudaFuncSetAttribute(group_crop_bwd<T, 8>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)
+              : cudaFuncSetAttribute(group_crop_bwd<T, 0>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices) opened[vec][dev] = true;
+  }
+  if (vec)
+    group_crop_bwd<T, 8><<<blocks, kBwdThreads, smem, stream>>>(
+        g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, amax_bits, kbits, acc);
+  else
+    group_crop_bwd<T, 0><<<blocks, kBwdThreads, smem, stream>>>(
+        g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, amax_bits, kbits, acc);
+  return cudaGetLastError();
 }
 
 // stop: the phase split's cut (0: none; see group_crop_bwd).
 template <typename T>
 int launch_bwd(const void* g_v, int B, int H, int W, int C, const float* boxes, int P, int V,
-               int CH, int CW, int patch, float* acc, int stop, cudaStream_t stream) {
+               int CH, int CW, int patch, unsigned long long* acc, void* out_v, int stop,
+               cudaStream_t stream) {
   const T* g = static_cast<const T*>(g_v);
+  T* out = static_cast<T*>(out_v);
   const int units = B * P;
   const int S = V * CH * CW;
   const int py = patch < H ? patch : H;
@@ -569,48 +695,38 @@ int launch_bwd(const void* g_v, int B, int H, int W, int C, const float* boxes, 
     }
   }
   if (U == 0) return (int)cudaErrorInvalidValue;  // one unit must fit
-  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(float) * (size_t)B * H * W * C, stream);
-  if (err != cudaSuccess || units == 0 || S == 0) return (int)err;
-  const unsigned blocks = (unsigned)((units + U - 1) / U);
-  const size_t smem = (size_t)bwd_smem(U, Cc, py, px, C, V, CH, CW, t_size).total;
-  // above 48 KB only once the function allows it, which is a setting of
-  // the current device: once per instantiation and device (the wrappers
-  // launch only on tensors of the current device)
-  constexpr int kDevices = 64;
-  static bool opened[2][kDevices] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  // the int64 sums, then max |g|'s bits in the word after them
+  const long long n_out = (long long)B * H * W * C;
+  unsigned* amax_bits = reinterpret_cast<unsigned*>(acc + n_out);
+  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * (n_out + 1), stream);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kDevices || !opened[vec][dev]) {
-    err = vec ? cudaFuncSetAttribute(group_crop_bwd<T, 8>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)
-              : cudaFuncSetAttribute(group_crop_bwd<T, 0>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  const long long n_samples = (long long)units * S;
+  int kbits = 0;
+  while ((1LL << kbits) < n_samples) ++kbits;
+  if (n_samples > 0) {
+    const long long n_g = n_samples * C;
+    const long long want = (n_g + 256LL * 8 - 1) / (256LL * 8);
+    amax_abs<T><<<(unsigned)(want < 1056 ? want : 1056), 256, 0, stream>>>(g, n_g, amax_bits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = launch_bwd_main<T>(g, B, H, W, C, boxes, P, V, CH, CW, patch, U, Cc, stop, amax_bits,
+                             kbits, acc, stream);
     if (err != cudaSuccess) return (int)err;
-    if (dev < kDevices) opened[vec][dev] = true;
   }
-  if (vec)
-    group_crop_bwd<T, 8><<<blocks, kBwdThreads, smem, stream>>>(
-        g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, acc);
-  else
-    group_crop_bwd<T, 0><<<blocks, kBwdThreads, smem, stream>>>(
-        g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, acc);
+  if (n_out > 0)
+    finish_fixed<T><<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(acc, n_out, amax_bits,
+                                                                       kbits, out);
   return (int)cudaGetLastError();
 }
 
 int bwd_launch(const void* g, int dtype, int B, int H, int W, int C, const float* boxes, int P,
-               int V, int CH, int CW, int patch, float* acc, void* out, int stop, void* stream) {
+               int V, int CH, int CW, int patch, unsigned long long* acc, void* out, int stop,
+               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, stop, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const int rc =
-      launch_bwd<__nv_bfloat16>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, stop, s);
-  if (rc != 0) return rc;
-  const long long n = (long long)B * H * W * C;
-  if (n == 0) return 0;
-  round_to_bf16<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(acc, n,
-                                                           static_cast<__nv_bfloat16*>(out));
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_bwd<float>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, out, stop, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(g, B, H, W, C, boxes, P, V, CH, CW, patch, acc, out, stop, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -628,12 +744,12 @@ extern "C" int group_crop_launch(const void* img, int dtype, int B, int H, int W
 }
 
 // g: [B, P, V, CH, CW, C] gradient of the crop in dtype (0 = float32,
-// 1 = bfloat16); boxes as the forward's; acc: [B, H, W, C] f32 scratch, the
-// gradient itself for float32; out: [B, H, W, C] bfloat16 for dtype 1 (the
-// rounded acc), unused for float32.
+// 1 = bfloat16); boxes as the forward's; acc: int64 scratch of
+// B * H * W * C + 1 values (the fixed-point sums and max |g|); out:
+// [B, H, W, C] in dtype.
 extern "C" int group_crop_bwd_launch(const void* g, int dtype, int B, int H, int W, int C,
                                      const float* boxes, int P, int V, int CH, int CW, int patch,
-                                     float* acc, void* out, void* stream) {
+                                     unsigned long long* acc, void* out, void* stream) {
   return bwd_launch(g, dtype, B, H, W, C, boxes, P, V, CH, CW, patch, acc, out, 0, stream);
 }
 
@@ -643,7 +759,8 @@ extern "C" int group_crop_bwd_launch(const void* g, int dtype, int B, int H, int
 // gradient).
 extern "C" int group_crop_bwd_split_launch(const void* g, int dtype, int B, int H, int W, int C,
                                            const float* boxes, int P, int V, int CH, int CW,
-                                           int patch, float* acc, void* out, int stop,
+                                           int patch, unsigned long long* acc, void* out,
+                                           int stop,
                                            void* stream) {
   return bwd_launch(g, dtype, B, H, W, C, boxes, P, V, CH, CW, patch, acc, out, stop, stream);
 }

@@ -61,7 +61,9 @@
 //     its blocks' carries in block order and writes it.
 // Slots are placed by atomics, and runs meet by shared atomics, so the order
 // of the sum within a row is not fixed: it varies from run to run
-// (tolerance: f32 rounding of a sum of <= hundreds of terms).
+// (tolerance: f32 rounding of a sum of <= hundreds of terms). The bf16
+// accumulation mode replaces (4) by an ordered gather (below), whose bf16
+// sums follow the points' order.
 #include "common.cuh"
 
 namespace {
@@ -219,9 +221,11 @@ __global__ void __launch_bounds__(kScanThreads) patch_pool_scan(Scratch s, int n
 }
 
 // Also writes the empty target rows' zeros: a warp per 32 rows.
+// slot_row holds each slot's target row, or with `by_point` its point's
+// index (the ordered bf16 gather sorts a row's slots by it).
 __global__ void patch_pool_place(const int* __restrict__ rows, const int* __restrict__ cols,
                                  const float* __restrict__ vals, int B, int P, int Hs, int Ws,
-                                 int Tn, int C, Scratch s, float* __restrict__ out,
+                                 int Tn, int C, Scratch s, int by_point, float* __restrict__ out,
                                  float* __restrict__ den_out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long n_rows = (long long)B * Tn;
@@ -250,7 +254,7 @@ __global__ void patch_pool_place(const int* __restrict__ rows, const int* __rest
   const int u0 = min(max(c00 - v * Ws, 0), Ws - (Ws > 1 ? 2 : 1));
   const long long id = (long long)b * Tn + rows[i];
   const long long at = slot_of(s, id) + r;
-  s.slot_row[at] = (int)id;
+  s.slot_row[at] = by_point ? (int)i : (int)id;
   s.slot_pix[at] = (b * Hs + v0) * Ws + u0;
   s.slot_w[at] = make_float4(vals[i * 4], vals[i * 4 + 1], vals[i * 4 + 2], vals[i * 4 + 3]);
 }
@@ -430,6 +434,60 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
   }
 }
 
+// The bf16 accumulation mode (`sparse_pool.accum_dtype = "bfloat16"`), as
+// the reference's `impl` computes it: each tap's product rounded to bf16,
+// the four summed in f32 and rounded, the weight sum of each point in f32
+// and rounded, and each row's sums taken in bf16, rounding after every add,
+// in the order of the points (XLA's scatter-add adds a segment's entries in
+// index order). A warp per target row: it ranks the row's slots by point
+// index (each rank counts the row's smaller indices), then walks them in
+// that order, a lane per channel. The result does not depend on the order
+// the atomics placed the slots in. A row's rank pass is quadratic in its
+// points; this mode is off the main path (its default is float32).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+patch_pool_gather_bf16(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s,
+                       long long n_rows, int with_den, float* __restrict__ out,
+                       float* __restrict__ den_out) {
+  const long long row = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const int n = s.hist[row];
+  if (n == 0) return;  // the place pass wrote the empty row's zeros
+  const long long base = slot_of(s, row);
+  int* order = s.rank + base;  // free once placed: the row's slots in point order
+  for (int q = lane; q < n; q += 32) {
+    const int mine = s.slot_row[base + q];
+    int k = 0;
+    for (int q2 = 0; q2 < n; ++q2) k += s.slot_row[base + q2] < mine;
+    order[k] = q;
+  }
+  __syncwarp();
+  const auto bf = [](float x) { return __bfloat162float(__float2bfloat16_rn(x)); };
+  float den = 0.0f;  // every lane takes the weight sum
+  for (int k = 0; k < n; ++k) {
+    const float4 x = s.slot_w[base + order[k]];
+    den = bf(den + bf(((x.x + x.y) + x.z) + x.w));
+  }
+  const int right = Ws > 1 ? 1 : 0;
+  const int down = Hs > 1 ? Ws : 0;
+  for (int c = lane; c < C; c += 32) {
+    float acc = 0.0f;
+    for (int k = 0; k < n; ++k) {
+      const long long q = base + order[k];
+      const float4 x = s.slot_w[q];
+      const T* p = src + (long long)s.slot_pix[q] * C + c;
+      float g = bf(bf(spt::to_f32(p[0])) * bf(x.x));
+      g = g + bf(bf(spt::to_f32(p[(long long)right * C])) * bf(x.y));
+      g = g + bf(bf(spt::to_f32(p[(long long)down * C])) * bf(x.z));
+      g = g + bf(bf(spt::to_f32(p[(long long)(down + right) * C])) * bf(x.w));
+      acc = bf(acc + bf(g));
+    }
+    out[row * C + c] = finish(acc, den, with_den);
+  }
+  if (lane == 0 && den_out != nullptr) den_out[row] = den;
+}
+
 template <typename T, int W, int S>
 cudaError_t gather(const T* src, int Hs, int Ws, int C, const Scratch& s, long long n_blocks,
                    int with_den, float* out, float* den_out, cudaStream_t stream) {
@@ -440,8 +498,8 @@ cudaError_t gather(const T* src, int Hs, int Ws, int C, const Scratch& s, long l
 
 template <typename T>
 int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, const int* cols,
-           const float* vals, int P, int Tn, int with_den, int* scratch, float* out,
-           float* den_out, cudaStream_t stream) {
+           const float* vals, int P, int Tn, int with_den, int accum_bf16, int* scratch,
+           float* out, float* den_out, cudaStream_t stream) {
   const T* src = static_cast<const T*>(src_v);
   const long long n_rows = (long long)B * Tn;
   const long long n_pts = (long long)B * P;
@@ -467,9 +525,14 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // a thread per point, and a warp per 32 target rows
   const long long place_blocks = max(pt_blocks, (n_rows + kThreads - 1) / kThreads);
-  patch_pool_place<<<(unsigned)place_blocks, kThreads, 0, stream>>>(rows, cols, vals, B, P, Hs,
-                                                                    Ws, Tn, C, s, out, den_out);
+  patch_pool_place<<<(unsigned)place_blocks, kThreads, 0, stream>>>(
+      rows, cols, vals, B, P, Hs, Ws, Tn, C, s, accum_bf16, out, den_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (accum_bf16) {
+    patch_pool_gather_bf16<T><<<(unsigned)((n_rows * 32 + kThreads - 1) / kThreads), kThreads, 0,
+                                stream>>>(src, Hs, Ws, C, s, n_rows, with_den, out, den_out);
+    return (int)cudaGetLastError();
+  }
   // the vector form also stores 4 channels at once: out must be 16-byte aligned
   if (C % 8 == 0 && spt::aligned(src, 16) && spt::aligned(out, 16))
     err = gather<T, 8, 8>(src, Hs, Ws, C, s, z.n_blocks, with_den, out, den_out, stream);
@@ -796,22 +859,24 @@ extern "C" long long sparse_pool_patch_scratch_ints(int B, int P, int Tn, int C)
   return Scratch::ints((long long)B * Tn, (long long)B * P, C);
 }
 
-// dtype: 0 = float32 source, 1 = bfloat16 source. scratch: the int32 buffer
-// above; out: [B*T, C] f32; den: [B*T] f32 weight sums, or null (written only
-// with with_den).
+// dtype: 0 = float32 source, 1 = bfloat16 source. accum_bf16: 0 sums in f32
+// (the gather above), 1 in bf16 (`patch_pool_gather_bf16`). scratch: the
+// int32 buffer above; out: [B*T, C] f32; den: [B*T] f32 weight sums, or
+// null (written only with with_den).
 extern "C" int sparse_pool_patch_launch(const void* src, int dtype, int B, int Hs, int Ws,
                                         int C, const int* rows, const int* cols,
                                         const float* vals, int P, int Tn, int with_den,
-                                        int* scratch, float* out, float* den, void* stream) {
+                                        int accum_bf16, int* scratch, float* out, float* den,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!spt::aligned(scratch, 16)) return (int)cudaErrorMisalignedAddress;
   float* den_out = with_den ? den : nullptr;
   if (dtype == 0)
-    return launch<float>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch, out,
-                         den_out, s);
+    return launch<float>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, accum_bf16,
+                         scratch, out, den_out, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den, scratch,
-                                 out, den_out, s);
+    return launch<__nv_bfloat16>(src, B, Hs, Ws, C, rows, cols, vals, P, Tn, with_den,
+                                 accum_bf16, scratch, out, den_out, s);
   return (int)cudaErrorInvalidValue;
 }
 

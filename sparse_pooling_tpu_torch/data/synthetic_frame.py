@@ -10,7 +10,7 @@ instead of the constant-96 canvas, which would hide image-side indexing bugs.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 
@@ -106,26 +106,3 @@ def synthetic_frame(
         # canvas-sized image: identity in-graph resize
         "image_scale": np.ones((2,), np.float32),
     }
-
-
-def pick_bucket(n: int, buckets, cap: int) -> int:
-    """Smallest configured bucket holding ``n`` valid points (else the cap)."""
-
-    for b in buckets:
-        if b >= n:
-            return int(b)
-    return int(cap)
-
-
-def trim_points_to_bucket(
-    points_b: np.ndarray,  # [B, cap, 3] prefix-packed
-    mask_b: np.ndarray,  # [B, cap] bool
-    buckets,  # ascending capacities, last == cap (SparsePoolConfig.buckets)
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Slice a stacked batch's padded point arrays to the smallest bucket
-    holding every frame's valid points. Valid points are a prefix of each
-    row, so the slice is lossless."""
-
-    n = int(mask_b.sum(axis=1).max()) if mask_b.size else 0
-    b = min(pick_bucket(n, buckets, points_b.shape[1]), points_b.shape[1])
-    return points_b[:, :b], mask_b[:, :b]

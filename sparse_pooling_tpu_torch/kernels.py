@@ -41,7 +41,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "sparse_pool_patch": {
         "sparse_pool_patch_scratch_ints": ([_I] * 4, ctypes.c_longlong),
-        "sparse_pool_patch_launch": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
+        "sparse_pool_patch_launch": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
         "sparse_pool_patch_bwd_scratch_ints": ([_I] * 4, ctypes.c_longlong),
         "sparse_pool_patch_bwd_launch": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
     },

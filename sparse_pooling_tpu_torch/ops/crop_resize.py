@@ -215,7 +215,7 @@ def crop_and_resize_group_kernel(
     lib = kernels.library("group_crop")
     out = images.new_empty((b, p, v, ch, cw, c))
     # refused (invalid argument) where one unit's window and coordinates
-    # exceed 48 KB of shared memory
+    # exceed 227 KB of shared memory, all a block may take
     rc = lib.group_crop_launch(images.data_ptr(), dt, b, h, w, c, boxes_grouped.data_ptr(), p, v,
                                ch, cw, int(patch), out.data_ptr(), kernels.stream_ptr(device))
     kernels.check(lib, rc, what)
@@ -245,7 +245,8 @@ def crop_and_resize_group_bwd_plain(grad: torch.Tensor, boxes_grouped: torch.Ten
 def crop_and_resize_group_bwd_kernel(grad: torch.Tensor, boxes_grouped: torch.Tensor, image_shape,
                                      crop_hw, patch: int, dtype: torch.dtype) -> torch.Tensor:
     """Kernel C-bwd on CUDA tensors -> the image gradient [B, H, W, C] in
-    ``dtype`` (the gradient's dtype), summed in f32 and rounded once."""
+    ``dtype`` (the gradient's dtype): f32 partial sums added in an int64
+    fixed point, rounded once, the same bits on every launch."""
 
     what = "group_crop_bwd"
     device = kernels.require_cuda(grad, boxes_grouped, what=what)
@@ -260,8 +261,8 @@ def crop_and_resize_group_bwd_kernel(grad: torch.Tensor, boxes_grouped: torch.Te
         raise TypeError(f"{what}: grad dtype {grad.dtype} differs from the image's {dtype}")
     dt = kernels.dtype_code(grad, what)
     lib = kernels.library("group_crop")
-    acc = grad.new_empty((b, h, w, c), dtype=torch.float32)
-    out = acc if dtype == torch.float32 else grad.new_empty((b, h, w, c))
+    acc = grad.new_empty((b * h * w * c + 1,), dtype=torch.int64)  # the sums, then max |g|
+    out = grad.new_empty((b, h, w, c))
     # refused (invalid argument) where one unit's gradients, coordinates and
     # f32 window rows of one channel group exceed 227 KB of shared memory
     rc = lib.group_crop_bwd_launch(grad.data_ptr(), dt, b, h, w, c, boxes_grouped.data_ptr(), p, v,

@@ -48,6 +48,29 @@ def _gather_point_patches(src_map: torch.Tensor, cols: torch.Tensor) -> torch.Te
     return flat[idx.reshape(-1)].reshape(b, cols.shape[1], 4, c)
 
 
+def _ordered_segment_sum(ids: torch.Tensor, entries: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """[N] segment ids + [N, C] entries -> [n_seg, C] in the entries' dtype,
+    each segment's entries added in their order and rounded after every add
+    (XLA's scatter-add in bf16; ``index_add_`` on the CPU sums in f32 and
+    rounds once, on a card in the atomics' order). One vectorised add per
+    depth: the k-th entries of all segments together."""
+
+    order = torch.argsort(ids, stable=True)
+    ids_s, ent_s = ids[order], entries[order]
+    counts = torch.bincount(ids_s, minlength=n_seg)
+    starts = torch.cumsum(counts, 0) - counts
+    depth = torch.arange(ids_s.numel(), device=ids.device) - starts[ids_s]
+    by_depth = torch.argsort(depth, stable=True)
+    out = torch.zeros(n_seg, entries.shape[1], dtype=entries.dtype, device=entries.device)
+    lo = 0
+    for n in torch.bincount(depth).tolist() if depth.numel() else []:
+        pick = by_depth[lo:lo + n]
+        seg = ids_s[pick]
+        out[seg] = out[seg] + ent_s[pick]
+        lo += n
+    return out
+
+
 def sparse_pool_patch_plain(
     src_map: torch.Tensor,  # [B, Hs, Ws, C]
     rows: torch.Tensor,  # [B, P] int32
@@ -59,7 +82,9 @@ def sparse_pool_patch_plain(
 ):
     """Plain PyTorch twin of kernel A -> ([B, T, C] f32 accumulated in
     ``accum_dtype``, the weight sums [B, T] f32 or None without
-    ``divide_by_weight_sum``)."""
+    ``divide_by_weight_sum``). In f32 one ``index_add_``; in bf16 each row's
+    sum rounds after every add, in the points' order, as the reference's
+    ``segment_sum`` does (``_ordered_segment_sum``)."""
 
     acc = getattr(torch, accum_dtype)
     b, _, _, c = src_map.shape
@@ -71,8 +96,11 @@ def sparse_pool_patch_plain(
     # flat ids over the batch; segment_sum drops ids outside [0, B*T)
     ids = (rows.to(torch.int64) + (torch.arange(b, device=rows.device) * num_targets)[:, None]).reshape(-1)
     keep = (ids >= 0) & (ids < b * num_targets)
-    flat = torch.zeros(b * num_targets, n_ch, dtype=acc, device=src_map.device)
-    flat.index_add_(0, ids[keep], g.reshape(-1, n_ch)[keep])
+    if acc == torch.float32:
+        flat = torch.zeros(b * num_targets, n_ch, dtype=acc, device=src_map.device)
+        flat.index_add_(0, ids[keep], g.reshape(-1, n_ch)[keep])
+    else:
+        flat = _ordered_segment_sum(ids[keep], g.reshape(-1, n_ch)[keep], b * num_targets)
     flat = flat.reshape(b, num_targets, n_ch)
     if not divide_by_weight_sum:
         return flat.to(torch.float32), None
@@ -93,12 +121,13 @@ def sparse_pool_patch_kernel(
     accum_dtype: str = "float32",
 ):
     """Kernel A on CUDA tensors -> ([B, T, C] f32, the weight sums [B, T]
-    f32 or None), as ``sparse_pool_patch_plain``. Accumulates in f32 only;
-    the backward reads the weight sums the kernel writes."""
+    f32 or None), as ``sparse_pool_patch_plain``: sums in f32, or with
+    ``accum_dtype="bfloat16"`` in bf16 in the points' order (the ordered
+    gather). The backward reads the weight sums the kernel writes."""
 
     what = "sparse_pool_patch"
-    if accum_dtype != "float32":
-        raise NotImplementedError(f"{what}: kernel accumulates in float32 only, got {accum_dtype}")
+    if accum_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"{what}: accum_dtype float32 or bfloat16, got {accum_dtype}")
     device = kernels.require_cuda(src_map, rows, cols, vals, what=what)
     b, hs, ws, c = src_map.shape
     p = rows.shape[1]
@@ -118,7 +147,8 @@ def sparse_pool_patch_kernel(
     den = vals.new_empty((b, int(num_targets))) if divide_by_weight_sum else None
     rc = lib.sparse_pool_patch_launch(
         src_map.data_ptr(), dt, b, hs, ws, c, rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-        p, int(num_targets), int(divide_by_weight_sum), scratch.data_ptr(), out.data_ptr(),
+        p, int(num_targets), int(divide_by_weight_sum), int(accum_dtype == "bfloat16"),
+        scratch.data_ptr(), out.data_ptr(),
         None if den is None else den.data_ptr(), kernels.stream_ptr(device),
     )
     kernels.check(lib, rc, what)

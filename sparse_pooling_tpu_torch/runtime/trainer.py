@@ -1,16 +1,19 @@
 """Training runtime on one card: optimizer, train step, checkpoint loop.
 
 Port of ``sparse_pooling_tpu.runtime.trainer`` for a single device (the
-mesh of ``parallel/`` is not ported). Adam, SGD or RMSprop with optax's
-staircase ``exponential_decay`` as a ``LambdaLR`` and optax's global-norm
-clip; a step is the train-mode forward (path drop and dropout from the
-trainer's generator), the losses with in-graph sampling, the backward
-through kernels A-bwd and C-bwd on the card, and the update. Parameters are
-kept in f32 and the layers compute in the config's dtype, as flax's
-``param_dtype`` and ``dtype``. Checkpoints are ``{"model", "optimizer",
-"step"}`` under ``<workdir>/checkpoints/<step>/``; a new trainer resumes
-from the latest. The generator is seeded anew on resume, as the reference
-re-derives its key.
+mesh of ``parallel/`` is not ported: with ``train.data_parallel`` set and
+more than one card visible, the trainer says so at start and trains on
+one). Adam, SGD or RMSprop with optax's staircase ``exponential_decay`` as a
+``LambdaLR`` and optax's global-norm clip; a step is the train-mode forward
+(path drop and dropout from the trainer's generator), the losses with
+in-graph sampling, the backward through kernels A-bwd and C-bwd on the card,
+and the update. Parameters are kept in f32 and the layers compute in the
+config's dtype, as flax's ``param_dtype`` and ``dtype``. Batches come from a
+``KittiDataset`` over ``cfg.dataset`` unless another dataset is given, one
+epoch at a time through a ``DevicePrefetcher`` of ``train.prefetch_depth``.
+Checkpoints are ``{"model", "optimizer", "step"}`` under
+``<workdir>/checkpoints/<step>/``; a new trainer resumes from the latest.
+The generator is seeded anew on resume, as the reference re-derives its key.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 
 from sparse_pooling_tpu_torch import resolve_device, weights
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, PipelineConfig
-from sparse_pooling_tpu_torch.data.synthetic_frame import trim_points_to_bucket
+from sparse_pooling_tpu_torch.data.dataset import KittiDataset
+from sparse_pooling_tpu_torch.data.pointcloud import trim_points_to_bucket
+from sparse_pooling_tpu_torch.data.prefetch import DevicePrefetcher
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.runtime import checkpoint as ckpt_mod
 from sparse_pooling_tpu_torch.runtime.summary import SummaryWriter
@@ -132,12 +137,11 @@ def make_train_step(model, optimizer, scheduler, anchors_static, cfg: PipelineCo
 
 class FrameDataset:
     """A dataset over frames held in memory (dicts of numpy arrays keyed like
-    ``pipeline.RawSample``, e.g. ``data.synthetic_frame``), with the JAX
+    ``pipeline.RawSample``, e.g. ``data.synthetic_frame``), with
     ``KittiDataset``'s ``batches`` and ``__len__``: each epoch takes the
-    frames in order, drops the ragged tail and ignores ``augment`` (the
-    augmentation is not ported yet). With ``buckets`` a batch's points are
-    cut to the smallest bucket that holds them, as the reference stacks
-    them."""
+    frames in order, drops the ragged tail and ignores ``augment``. With
+    ``buckets`` a batch's points are cut to the smallest bucket that holds
+    them, as ``KittiDataset`` stacks them."""
 
     def __init__(self, frames: List[Dict[str, np.ndarray]], buckets: Optional[Sequence[int]] = None):
         self.frames, self.buckets = list(frames), buckets
@@ -159,18 +163,6 @@ class FrameDataset:
             yield tuple(arrays.values()), [str(start + i) for i in range(batch_size)]
 
 
-def to_device(arrays, device) -> pl.RawSample:
-    """One batch of a dataset (stacked arrays in ``RawSample`` field order)
-    on ``device``, through ``pipeline.stack_frames``."""
-
-    b = next(a for a in arrays if a is not None).shape[0]
-    frames = [
-        {name: a[i] for name, a in zip(pl.RawSample._fields, arrays) if a is not None}
-        for i in range(b)
-    ]
-    return pl.stack_frames(frames, device=device)
-
-
 @dataclasses.dataclass
 class TrainState:
     model: Any
@@ -183,12 +175,19 @@ class TrainState:
 class Trainer:
     """Workdir-owning train loop on one device (reference ``Trainer``).
     ``dataset`` is any object with ``batches(batch_size, epoch, augment)``
-    yielding (arrays in ``RawSample`` field order, ids) and ``__len__``."""
+    yielding (arrays in ``RawSample`` field order, ids) and ``__len__``; by
+    default a ``KittiDataset`` over ``cfg.dataset``. ``input_timings`` sums
+    the prefetchers' ``timings`` and ``waits`` over the epochs trained."""
 
-    def __init__(self, cfg: PipelineConfig, dataset, extents: AreaExtents = AreaExtents(),
+    def __init__(self, cfg: PipelineConfig, dataset=None, extents: AreaExtents = AreaExtents(),
                  workdir: Optional[str] = None, device="cuda", seed: int = 0):
-        self.cfg, self.extents, self.dataset, self.seed = cfg, extents, dataset, seed
+        self.cfg, self.extents, self.seed = cfg, extents, seed
         self.device = resolve_device(device)
+        self.dataset = KittiDataset(cfg.dataset, cfg.model, extents) if dataset is None else dataset
+        if cfg.train.data_parallel and torch.cuda.device_count() > 1:
+            print(f"[trainer] train.data_parallel is set and {torch.cuda.device_count()} cards are "
+                  f"visible, but the port trains on one ({self.device}): parallel/ is not ported yet")
+        self.input_timings = {"load": 0.0, "put": 0.0, "wait": 0.0, "waits": 0}
         self.workdir = workdir or os.path.join(cfg.experiments_dir, cfg.checkpoint_name)
         self.ckpt_dir = os.path.join(self.workdir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
@@ -235,35 +234,42 @@ class Trainer:
         t_last = time.time()
         while state.step < max_steps:
             first = state.step
-            for arrays, _ids in self.dataset.batches(bsz, epoch, augment=True):
-                if cuda:
-                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    start.record()
-                t0 = time.perf_counter()
-                metrics = train_step(to_device(arrays, self.device), state.generator)
-                if cuda:
-                    end.record()
-                state.step += 1
-                if state.step % cfg.train.summary_interval == 0:
-                    metrics = {k: float(v) for k, v in metrics.items()}
+            prefetch = DevicePrefetcher(
+                self.dataset.batches(bsz, epoch, augment=True), depth=cfg.train.prefetch_depth,
+                device=self.device, transform=lambda item: (pl.RawSample(*item[0]), item[1]))
+            with prefetch:  # an early break must release the worker and its batches
+                for batch, _ids in prefetch:
                     if cuda:
-                        end.synchronize()
-                        metrics["step_ms"] = start.elapsed_time(end)
-                    else:
-                        metrics["step_ms"] = 1e3 * (time.perf_counter() - t0)
-                    dt = time.time() - t_last
-                    t_last = time.time()
-                    rate = cfg.train.summary_interval * bsz / max(dt, 1e-9)
-                    self.summary.scalars(state.step, {**metrics, "frames_per_sec": rate})
-                    print(f"[trainer] step {state.step} total={metrics['total']:.4f} "
-                          f"rpn_obj={metrics['rpn_objectness']:.4f} cls={metrics['cls']:.4f} "
-                          f"fps={rate:.1f}")
-                if state.step % cfg.train.checkpoint_interval == 0 or state.step >= max_steps:
-                    writer.save(state.step, {"model": state.model.state_dict(),
-                                             "optimizer": state.optimizer.state_dict(),
-                                             "step": state.step})
-                if state.step >= max_steps:
-                    break
+                        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        start.record()
+                    t0 = time.perf_counter()
+                    metrics = train_step(batch, state.generator)
+                    if cuda:
+                        end.record()
+                    state.step += 1
+                    if state.step % cfg.train.summary_interval == 0:
+                        metrics = {k: float(v) for k, v in metrics.items()}
+                        if cuda:
+                            end.synchronize()
+                            metrics["step_ms"] = start.elapsed_time(end)
+                        else:
+                            metrics["step_ms"] = 1e3 * (time.perf_counter() - t0)
+                        dt = time.time() - t_last
+                        t_last = time.time()
+                        rate = cfg.train.summary_interval * bsz / max(dt, 1e-9)
+                        self.summary.scalars(state.step, {**metrics, "frames_per_sec": rate})
+                        print(f"[trainer] step {state.step} total={metrics['total']:.4f} "
+                              f"rpn_obj={metrics['rpn_objectness']:.4f} cls={metrics['cls']:.4f} "
+                              f"fps={rate:.1f}")
+                    if state.step % cfg.train.checkpoint_interval == 0 or state.step >= max_steps:
+                        writer.save(state.step, {"model": state.model.state_dict(),
+                                                 "optimizer": state.optimizer.state_dict(),
+                                                 "step": state.step})
+                    if state.step >= max_steps:
+                        break
+            for key, value in prefetch.timings.items():
+                self.input_timings[key] += value
+            self.input_timings["waits"] += prefetch.waits
             if state.step == first:
                 raise ValueError(f"the dataset yields no batch of {bsz} frames")
             epoch += 1

@@ -18,8 +18,10 @@ sub-groups share) among many empty rows, ids -1, T and T + 7 (dropped or
 spilled into the next frame), window starts below 0 and past Hs * Ws, a
 source side of 1, points whose four weights are all 0, C = 4, 6, 33 and 64
 (8 channels a lane in the gather at C = 64, else 1), and a source that is
-not 16-byte aligned. C: C = 3, 5, 8 and 32, H or W
-below the patch, V = 1, 8 and 32, boxes running off the map's edges, and an
+not 16-byte aligned; on the card also A's bf16 accumulation mode against
+its twin (the same bf16 sums in the same order). C: C = 3, 5, 8 and 32, H
+or W below the patch, a unit above 48 KB of shared memory (C = 32 at
+patch 20 in f32), V = 1, 8 and 32, boxes running off the map's edges, and an
 image that is not 16-byte aligned (the generic path at C = 8). B: batches
 of 1 and 3 frames (one launch each), C = 3, 5, 8, 32, 64 and 72 (vector and
 scalar paths), K = 1, 3, 8 and 16 (the K = 8 path and any K), T = 37 (a
@@ -38,7 +40,9 @@ ones, C's cases above (windows at the map's edges; at C = 32, patch 16 a
 unit of C-bwd needs more than 48 KB of shared memory), batches of 1 and 3,
 gradients that are not 16-byte aligned, and C-bwd at the main path's two
 views (512 units a frame of 32 variants, spread over the map or all on one
-window).
+window). C-bwd also runs twice on the same inputs in each of these cases,
+and the two gradients must be the same bits (its sums meet in an integer
+fixed point, so the order of its atomics does not show).
 
 JAX is imported inside a fixture, so this file runs where JAX or flax is
 missing: there the CPU parity tests skip and the card tests still run
@@ -183,6 +187,32 @@ def test_kernel_a_matches_plain_on_card_at_edges(cuda, case, divide, dtype, misa
     assert bool((got[empty] == 0).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("divide", [True, False])
+@pytest.mark.parametrize("case", sorted(A_CASES))
+def test_kernel_a_bf16_accumulation_matches_plain_on_card(cuda, case, divide, dtype):
+    """``accum_dtype="bfloat16"``: kernel and twin take the same bf16 sums in
+    the points' order; only the f32 order of a point's four products and of
+    its four weights differs, which can flip one rounding (2e-2, as C's bf16)."""
+
+    src, rows, cols, vals = _a_inputs(case)
+    x = torch.from_numpy(src).to(cuda, dtype)
+    r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
+    before = sparse_pool.sparse_pool_patch_kernel.launches
+    got, got_den = sparse_pool.sparse_pool_patch_kernel(x, r, cl, v, A_TARGETS, divide, "bfloat16")
+    want, want_den = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, A_TARGETS, divide, "bfloat16")
+    torch.cuda.synchronize()
+    assert sparse_pool.sparse_pool_patch_kernel.launches == before + 1
+    _assert_rel(got, want, 2e-2)
+    f32, _ = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, A_TARGETS, divide)
+    assert (want - f32).abs().max() > 0  # the mode differs from f32 sums at these inputs
+    if divide:
+        _assert_rel(got_den, want_den, 2e-2)
+    empty = want.abs().sum(-1) == 0
+    assert bool((got[empty] == 0).all())
+
+
 # ------------------------------------------------------------ kernel C
 
 C_CASES = {  # name: (H, W, C, patch, V)
@@ -194,6 +224,8 @@ C_CASES = {  # name: (H, W, C, patch, V)
     "c3_both_below_patch": (5, 4, 3, 12, 8),
     # C-bwd needs 68 KB of shared memory for one unit here (f32), above 48 KB
     "c32_p16_v32": (24, 28, 32, 16, 32),
+    # kernel C needs 52 KB for one f32 unit here (its window alone is 51 KB)
+    "c32_p20_v32": (28, 32, 32, 20, 32),
 }
 C_BATCH, C_UNITS = 2, 37
 
@@ -562,3 +594,26 @@ def test_kernel_c_bwd_matches_plain_on_card_at_main_shapes(cuda, view, layout, d
     _assert_rel(got, want, BWD_TOL[dtype])
     untouched = want.float().abs().sum(-1) == 0  # cells no window reaches stay exactly 0
     assert bool((got[untouched] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(C_CASES) + [f"{v}_{l}" for v in sorted(C_MAIN)
+                                                    for l in ("spread", "one_window")])
+def test_kernel_c_bwd_is_deterministic_on_card(cuda, case, dtype):
+    """Two launches on the same inputs give the same bits: every edge case,
+    and the main path's views (one_window: 512 units add into each cell)."""
+
+    if case in C_CASES:
+        img, boxes, patch = _c_inputs(case)
+        g = _c_grad(img, boxes)
+    else:
+        img, boxes, patch, g = _c_main_inputs(*case.split("_", 1))
+    bx = torch.from_numpy(boxes).to(cuda)
+    gd = torch.from_numpy(g).to(cuda, dtype)
+    first, second = (crop_resize.crop_and_resize_group_bwd_kernel(gd, bx, img.shape, (3, 3), patch, dtype)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert first.abs().max() > 0
+    assert torch.equal(first.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       second.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))

@@ -67,7 +67,8 @@ def test_kernel_a_plain_matches_jax(shape, divide):
 
 
 def test_kernel_a_bf16_accumulator_matches_jax():
-    """accum_dtype="bfloat16" (a config option; the CUDA kernel refuses it)."""
+    """accum_dtype="bfloat16" (a config option; kernel A runs it on the card,
+    held against this twin in tests/test_torch_kernel_edges.py)."""
 
     src, rows, cols, vals = _patch_inputs(3, 2, 6, 9, 8, 200, 23)
     want = np.asarray(j_sp.sparse_pool_patch_major_batch(
@@ -181,3 +182,21 @@ def test_kernel_c_equals_bilinear_at_window_clamped_coords(patch):
     ) * dy
     got = t_crop.crop_and_resize_group_plain(im, tb, (3, 3), patch)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_bf16_segment_sum_rounds_after_every_add_in_point_order():
+    """Kernel A's bf16 twin sums each row's entries in bf16, rounding after
+    every add, in the points' order: equal to a loop over the points."""
+
+    rng = np.random.RandomState(11)
+    ids = torch.from_numpy(rng.randint(0, 7, 300))
+    ids[:40] = 3  # a long row
+    entries = torch.from_numpy(rng.randn(300, 5).astype(np.float32) * 3).to(torch.bfloat16)
+    want = torch.zeros(9, 5, dtype=torch.bfloat16)
+    for i, e in zip(ids.tolist(), entries):
+        want[i] = want[i] + e
+    got = t_sp._ordered_segment_sum(ids, entries, 9)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    f32 = torch.zeros(9, 5).index_add_(0, ids, entries.float()).to(torch.bfloat16)
+    assert not torch.equal(got, f32)  # one rounding at the end differs here

@@ -21,7 +21,7 @@ from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "sparse_pooling_tpu", "__graft_entry__")
+FORBIDDEN = ("jax", "flax", "sparse_pooling_tpu", "__graft_entry__", "PIL")
 
 
 def _port_files():
@@ -54,6 +54,14 @@ def test_import_check_covers_the_training_modules():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for module in ("ops/iou.py", "ops/losses.py", "ops/target_assign.py", "models/loss.py",
                    "runtime/trainer.py", "runtime/checkpoint.py", "runtime/summary.py"):
+        assert f"sparse_pooling_tpu_torch/{module}" in names, module
+
+
+def test_import_check_covers_the_kitti_data_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for module in ("data/labels.py", "data/calib.py", "data/pointcloud.py", "data/augmentation.py",
+                   "data/dataset.py", "data/synthetic.py", "data/prefetch.py",
+                   "native/sample_loader.py", "experiments/run_training.py"):
         assert f"sparse_pooling_tpu_torch/{module}" in names, module
 
 
@@ -286,3 +294,35 @@ def test_train_step_on_card_counts_backward_launches(cuda):
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(torch.isfinite(p).all() for p in model.parameters())
 
+
+
+@pytest.mark.cuda
+def test_prefetcher_on_card_pins_and_waits(cuda, tmp_path):
+    """KittiDataset batches of a written tree through DevicePrefetcher: every
+    array lands on the card equal to the host batch, from pinned buffers,
+    the consumer reading on a stream of its own behind the copies' events."""
+
+    from sparse_pooling_tpu_torch.data.dataset import KittiDataset
+    from sparse_pooling_tpu_torch.data.prefetch import DevicePrefetcher
+    from sparse_pooling_tpu_torch.data.synthetic import write_kitti_tree
+
+    write_kitti_tree(str(tmp_path), num_frames=7, n_ground=4000, n_obj=200, val_frames=(6,))
+    cfg = cars_pyramid_config()
+    sp = dataclasses.replace(cfg.model.sparse_pool, max_points=8192, point_buckets=(2048, 4096))
+    model = dataclasses.replace(cfg.model, sparse_pool=sp)
+    ds = KittiDataset(dataclasses.replace(cfg.dataset, root=str(tmp_path)), model, AreaExtents())
+    want = list(ds.batches(2, 0))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with DevicePrefetcher(ds.batches(2, 0), depth=2, device=cuda) as pf:
+            got = [(tuple(t.clone() if t is not None else None for t in ts), ids) for ts, ids in pf]
+            pinned = [b for slot in pf._slots for b in slot["bufs"].values()]
+        side.synchronize()
+    assert len(got) == len(want) == 3
+    assert pinned and all(b.is_pinned() for b in pinned)
+    assert pf.timings["put"] > 0
+    for (tensors, ids), (arrays, want_ids) in zip(got, want):
+        assert ids == want_ids
+        for t, a in zip(tensors, arrays):
+            assert t.is_cuda and t.dtype == torch.from_numpy(a).dtype
+            assert np.array_equal(t.cpu().numpy(), a)
