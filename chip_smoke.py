@@ -48,16 +48,27 @@ non-zero):
 7. one training step of the narrow parity config on the card against the
    CPU, with stage-2 positives sampled: losses and every parameter's
    gradient;
-8. the KITTI data path: a tree of 20 frames written from seeds under the
-   git-ignored ``build/``; for each of its 16 training frames the native PNG
-   decode against the image drawn (byte for byte) and the native points
-   against ``load_points_filtered``; one batch's host load split by part;
-   then ``Trainer(cfg)`` at full width over the tree (its ``KittiDataset``
-   with shuffle and augmentation, a ``DevicePrefetcher`` of depth 2) for 4
-   steps, 2 epochs: finite losses, the ids in epoch order, A, C, A-bwd and
-   C-bwd twice a step (counts read around exactly these steps), each step's
-   time beside phase 6's, the prefetcher's load, put and wait;
-9. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+8. the KITTI data path: a tree of 36 frames written from seeds under the
+   git-ignored ``build/`` (16 training, 20 val); for each training frame
+   the native PNG decode against the image drawn (byte for byte) and the
+   native points against ``load_points_filtered``; one batch's host load
+   split by part; then ``Trainer(cfg)`` at full width over the tree (its
+   ``KittiDataset`` with shuffle and augmentation, a ``DevicePrefetcher`` of
+   depth 2) for 4 steps, 2 epochs: finite losses, the ids in epoch order, A,
+   C, A-bwd and C-bwd twice a step (counts read around exactly these
+   steps), each step's time beside phase 6's, the prefetcher's load, put
+   and wait;
+9. evaluation: ``Evaluator`` at full width over the tree's 20 val frames
+   (batch 8, the tail batch of 4 padded) through
+   ``repeated_checkpoint_run`` on the step-4 checkpoint of phase 8: one
+   step evaluated, one prediction file per val frame, A and C twice a
+   batch (counts read around exactly the sweep), every AP finite, the
+   native AP equal to the numpy oracle's to 1e-12, ``eval_<step>.json``
+   written; frames/s with host IO and the phase breakdown; one profiled
+   eval batch (device busy, launches, A's and C's device time beside phase
+   3's profiled request); then ``run_evaluation --ckpt_step 4`` and
+   ``run_inference`` on two frames;
+10. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
@@ -71,6 +82,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -303,10 +315,20 @@ def staged_request(model, batch, anchors, cfg, ext):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
-def profile_phase(model, batch, anchors, cfg, ext, request_ms: float) -> None:
+def hand_kernel_rows(rows) -> dict:
+    """Kernels A's and C's forward launches among torch.profiler rows
+    (name, ms, count): {"A": [(name, ms, count), ...], "C": [...]}."""
+
+    return {label: [r for r in rows if key in r[0] and "bwd" not in r[0]]
+            for label, key in (("A", "patch_pool"), ("C", "group_crop"))}
+
+
+def profile_phase(model, batch, anchors, cfg, ext, request_ms: float):
     """Where the time goes: stage times of one more request (CUDA events),
     then, from torch.profiler over another, device time by kernel category
-    and name, the launch count and the device's busy share."""
+    and name, the launch count and the device's busy share. Returns
+    ``hand_kernel_rows`` of the profiled request, or None without device
+    time."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -323,7 +345,7 @@ def profile_phase(model, batch, anchors, cfg, ext, request_ms: float) -> None:
     )
     if not rows:
         print("  torch.profiler recorded no device time: kernel split not measured")
-        return
+        return None
     busy = sum(r[1] for r in rows)
     print(f"  device busy {busy:.2f} ms in {sum(r[2] for r in rows)} kernel launches "
           f"({len(rows)} distinct kernels); busy share {busy / request_ms:.3f} of the "
@@ -337,6 +359,7 @@ def profile_phase(model, batch, anchors, cfg, ext, request_ms: float) -> None:
         print(f"  {ms:9.3f} ms {n:6d}x  [{cat}]")
     for name, ms, n in rows[:15]:
         print(f"  {ms:9.3f} ms {n:6d}x  {name[:110]}")
+    return hand_kernel_rows(rows)
 
 
 def compare(got, want, tol_rel: float, what: str):
@@ -353,6 +376,13 @@ def compare(got, want, tol_rel: float, what: str):
 # ------------------------------------------------------------ kernel checks
 
 
+def short_name(key: str) -> str:
+    """A kernel's name from its torch.profiler key, without return type,
+    namespace and arguments."""
+
+    return key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:48]
+
+
 def kernel_parts(fn, reps: int = 10) -> list:
     """(name, µs) per call of each kernel (and memset) that ``fn`` launches,
     from torch.profiler over ``reps`` calls: the kernels' own execution,
@@ -367,8 +397,7 @@ def kernel_parts(fn, reps: int = 10) -> list:
             fn()
         torch.cuda.synchronize()
     return [
-        (e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:48],
-         e.self_device_time_total / reps)
+        (short_name(e.key), e.self_device_time_total / reps)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
     ]
@@ -1229,7 +1258,8 @@ def train_card_vs_cpu_phase() -> None:
     check(rel <= 1e-4, f"training card vs cpu: gradients differ by {rel:.3e} relative")
 
 
-KITTI_FRAMES, KITTI_VAL, KITTI_STEPS = 20, range(16, 20), 4  # 16 training frames: 2 batches an epoch
+KITTI_FRAMES, KITTI_VAL, KITTI_STEPS = 36, range(16, 36), 4  # 16 training frames: 2 batches an epoch;
+# 20 val frames: 2 full eval batches and a tail of 4, padded
 
 
 def host_load_split(ds, ids, epoch: int) -> str:
@@ -1272,11 +1302,12 @@ def host_load_split(ds, ids, epoch: int) -> str:
             f"from batches() {whole:.2f} ms a frame (host clock, one thread, {len(ids)} frames)")
 
 
-def kitti_phase(device, frame_step_ms: float) -> None:
+def kitti_phase(device, frame_step_ms: float):
     """Phase 8: a KITTI tree written from seeds, the native loader against
     what was drawn and its numpy twin, then ``Trainer(cfg)`` at full width
     over the tree (its own ``KittiDataset``, shuffle and augmentation,
-    ``DevicePrefetcher`` of depth 2) for 4 steps, 2 epochs."""
+    ``DevicePrefetcher`` of depth 2) for 4 steps, 2 epochs. Returns (cfg,
+    tree root, the trainer's workdir) for phase 9, which removes both."""
 
     from sparse_pooling_tpu_torch.data import calib as calib_mod
     from sparse_pooling_tpu_torch.data import pointcloud, synthetic
@@ -1362,6 +1393,153 @@ def kitti_phase(device, frame_step_ms: float) -> None:
           f"(worker thread); the step waited on the queue {t['waits']} times, {t['wait']:.3f} s in all "
           f"(each epoch's first batch waits for its loader to start)")
     del trainer, state
+    return cfg, root, workdir
+
+
+def eval_batch_profile(ev, batch, serving, sweep_s: float, n_batches: int) -> None:
+    """One eval batch (``Evaluator.eval_batch``: forward, decode, packing)
+    under torch.profiler: device busy time, launches, the device's busy
+    share of the sweep (n_batches such batches over its wall time), and
+    kernels A's and C's device time by kernel beside those of phase 3's
+    profiled serving request (``serving``, from ``hand_kernel_rows``), with
+    what A's gather sees in each."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    a_calls = []
+    with torch.inference_mode():
+        with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls):
+            ev.eval_batch(batch)  # warm
+        torch.cuda.synchronize()
+        for args in a_calls:
+            src, rows, _, vals, t = args[:5]
+            print(f"[eval] A {tuple(src.shape)}->T={t} in the eval batch: {patch_pool_stats(rows, vals, t)}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ev.eval_batch(batch)
+        end.record()
+        end.synchronize()
+        call_ms = start.elapsed_time(end)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev.eval_batch(batch)
+            torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        print(f"[eval] one eval batch: {call_ms:.2f} ms (CUDA events); torch.profiler recorded no device "
+              "time: busy time, launches and kernel times not measured")
+        return
+    busy = sum(r[1] for r in rows)
+    print(f"[eval] one profiled eval batch of {BATCH}: device busy {busy:.2f} ms in {sum(r[2] for r in rows)} "
+          f"kernel launches ({len(rows)} distinct kernels); the batch's call {call_ms:.2f} ms (CUDA events, "
+          f"host enqueue included), busy share {busy / call_ms:.3f}; over the sweep ({n_batches} batches in "
+          f"{sweep_s:.3f} s) the device is busy {n_batches * busy / (1e3 * sweep_s):.3f} of the time")
+    def split(kernel_rows):
+        total = sum(ms for _, ms, _ in kernel_rows)
+        return (f"{total:.4f} ms in {sum(n for _, _, n in kernel_rows)} launches ("
+                + "; ".join(f"{short_name(name)} {1e3 * ms:.1f} us" for name, ms, _ in sorted(kernel_rows)) + ")")
+
+    for label, kernel_rows in hand_kernel_rows(rows).items():
+        ref = "not measured" if serving is None else split(serving[label])
+        print(f"[eval] kernel {label} device time (torch.profiler), the eval batch: {split(kernel_rows)}; "
+              f"phase 3's profiled serving request: {ref}")
+
+
+def eval_phase(device, cfg, root: str, workdir: str, serving) -> None:
+    """Phase 9: ``Evaluator`` at full width over the tree's val split (20
+    frames at batch 8: the tail batch of 4 padded) through
+    ``repeated_checkpoint_run``, on the checkpoint of step 4 that phase 8's
+    ``Trainer`` wrote; then one profiled eval batch and the evaluation and
+    inference CLIs. Removes the tree and the workdir."""
+
+    import math
+
+    from sparse_pooling_tpu_torch.experiments import run_evaluation, run_inference
+    from sparse_pooling_tpu_torch.runtime import metrics
+    from sparse_pooling_tpu_torch.runtime.evaluator import Evaluator
+
+    ecfg = dataclasses.replace(cfg, dataset=dataclasses.replace(cfg.dataset, split="val"))
+    check(ecfg.eval.batch_size == BATCH, f"eval batch {ecfg.eval.batch_size}, not {BATCH}")
+    ext = AreaExtents()
+    ev = Evaluator(ecfg, extents=ext, workdir=workdir, device=device)
+    val_ids = [f"{i:06d}" for i in KITTI_VAL]
+    check(ev.dataset.sample_ids == val_ids, "the val split is not frames 16-35")
+    check(ckpt_mod.all_steps(ev.ckpt_dir) == [KITTI_STEPS], f"checkpoints {ckpt_mod.all_steps(ev.ckpt_dir)}")
+    torch.cuda.synchronize()
+    reset_counts()
+    results = ev.repeated_checkpoint_run(max_wait=0)
+    torch.cuda.synchronize()
+    launches = counts()
+    check([r["step"] for r in results] == [KITTI_STEPS], f"evaluated steps {[r['step'] for r in results]}")
+    res = results[0]
+    n_batches = math.ceil(len(val_ids) / BATCH)
+    print(f"[eval] launches over the sweep's {n_batches} batches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for name in ("A", "C"):
+        check(launches[name] == 2 * n_batches,
+              f"kernel {name}: {launches[name]} launches in {n_batches} eval batches, not 2 a batch")
+    check(launches["A-bwd"] == launches["C-bwd"] == launches["B"] == 0, "the sweep launched B or a backward")
+    pred_dir = f"{workdir}/predictions/kitti_native_eval/{ecfg.eval.kitti_score_threshold:g}/{KITTI_STEPS}/data"
+    files = sorted(f for f in os.listdir(pred_dir) if f.endswith(".txt"))
+    check(files == [f"{sid}.txt" for sid in val_ids] and res["num_frames"] == len(val_ids),
+          f"{len(files)} prediction files for {len(val_ids)} val frames ({res['num_frames']} counted)")
+    n_rows = 0
+    for name in files:
+        with open(f"{pred_dir}/{name}") as f:
+            n_rows += len(f.read().splitlines())
+    ap = res["ap"]
+    values = [v for m in ap.values() for d in m.values() for v in d.values()]
+    check(all(np.isfinite(v) for v in values), "non-finite AP")
+    check(res["ap_backend"] == "native_cpp", f"AP backend {res['ap_backend']}")
+    oracle = metrics.evaluate_dirs(f"{ev.dataset.base}/label_2", pred_dir, ecfg.model.classes,
+                                   n_points=ecfg.eval.ap_n_points)
+    gap = max(abs(ap[c][m][d] - oracle[c][m][d]) for c in ap for m in ap[c] for d in ap[c][m])
+    check(gap <= 1e-12, f"the native AP differs from the numpy oracle's by {gap:.3e}")
+    with open(f"{workdir}/eval_{KITTI_STEPS}.json") as f:
+        check(json.load(f)["ap"] == ap, "eval_<step>.json does not hold the sweep's AP")
+    print(f"[eval] step {KITTI_STEPS}: {res['num_frames']} val frames ({n_rows} KITTI rows at score >= "
+          f"{ecfg.eval.kitti_score_threshold:g}) in {res['seconds']:.3f} s = {res['frames_per_sec']:.2f} "
+          f"frames/s at batch {BATCH} with host IO (loader threads {ecfg.eval.num_workers}, prefetch 2, "
+          f"inflight {ecfg.eval.inflight_batches}, readback group {ecfg.eval.readback_group}, async writer "
+          f"{ecfg.eval.async_writer}; {os.cpu_count()} host cores)")
+    ph, lt = ev.phases, ev.loader_timings
+    print("[eval] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in ph.items())
+          + "; loader: " + ", ".join(f"{k} {v:.3f}" for k, v in lt.items()))
+    print(f"[eval] native AP equals the numpy oracle (max gap {gap:.1e}, tol 1e-12); AP of a 4-step model on "
+          f"synthetic frames (it proves the path, not quality): {json.dumps(ap)}")
+
+    arrays, _ = next(ev._host_batches(BATCH))
+    batch = pl.RawSample(*(None if a is None else torch.from_numpy(a).to(device) for a in arrays))
+    eval_batch_profile(ev, batch, serving, res["seconds"], n_batches)
+    del ev, batch
+
+    exp, name = os.path.split(workdir)
+    cfg_path = f"{root}/eval_pipeline.json"
+    with open(cfg_path, "w") as f:
+        f.write(dataclasses.replace(ecfg, experiments_dir=exp, checkpoint_name=name).to_json())
+    common = ["--pipeline_config", cfg_path, "--dataset_root", root, "--ckpt_step", str(KITTI_STEPS),
+              "--device", str(device)]
+    t0 = time.perf_counter()
+    (cli,) = run_evaluation.main(common)
+    check(cli["num_frames"] == len(val_ids) and all(np.isfinite(v) for m in cli["ap"].values()
+                                                    for d in m.values() for v in d.values()),
+          "run_evaluation --ckpt_step did not evaluate the val split")
+    print(f"[eval] run_evaluation --ckpt_step {KITTI_STEPS}: {cli['num_frames']} frames, "
+          f"{time.perf_counter() - t0:.2f} s with the model's build")
+    with open(f"{root}/val2.txt", "w") as f:
+        f.write("".join(f"{sid}\n" for sid in val_ids[:2]))
+    out_dir = run_inference.main(common + ["--data_split", "val2", "--out_dir", f"{root}/inference"])
+    for sid in val_ids[:2]:
+        with open(f"{out_dir}/{sid}.txt") as f:
+            got = [line.split() for line in f]
+        with open(f"{pred_dir}/{sid}.txt") as f:
+            want = [line.split() for line in f]
+        check(all(np.isfinite(float(v)) for row in got for v in row[3:]), f"inference {sid}: non-finite")
+        same = len(got) == len(want) and all(g[0] == w[0] for g, w in zip(got, want))
+        diffs = [abs(float(a) - float(b)) for g, w in zip(got, want) for a, b in zip(g[3:], w[3:])]
+        gap = f"max abs difference {max(diffs, default=0.0):.3e}" if same else "the rows differ"
+        print(f"[eval] run_inference {sid} at batch 1: {len(got)} rows, the sweep at batch {BATCH} {len(want)}; "
+              f"{gap} (info: bf16 convolutions at another batch size)")
     shutil.rmtree(workdir)
     shutil.rmtree(root)
 
@@ -1479,7 +1657,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     check(launches_a >= 2 * REQUESTS, "kernel A was not launched twice per request")
     check(launches_c >= 2 * REQUESTS, "kernel C was not launched twice per request")
     check(n_valid > 0, "no valid detections")
-    profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)))
+    serving_kernels = profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)))
 
     # 4. the ELL path (kernel B): request 0's 8 frames, one launch per direction
     exact_a = [sparse_pool.sparse_pool_patch_plain(*args[:5], True)[0] for args in a_calls]
@@ -1516,7 +1694,11 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
 
     # 8. training from a KITTI tree through the native loader and the prefetcher
     print("[kitti data path]")
-    kitti_phase(device, frame_step_ms)
+    kitti_cfg, kitti_root, kitti_workdir = kitti_phase(device, frame_step_ms)
+
+    # 9. evaluation: the checkpoint phase 8 wrote, over the tree's val split
+    print("[evaluation]")
+    eval_phase(device, kitti_cfg, kitti_root, kitti_workdir, serving_kernels)
 
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",

@@ -32,6 +32,10 @@ def parse_args(argv=None):
 
 
 def load_config(args):
+    """The pipeline config of the CLI's arguments (``--pipeline_config`` or
+    ``--preset``, then the overrides given); shared with the evaluation and
+    inference CLIs, which have no ``--batch_size``."""
+
     from sparse_pooling_tpu_torch.configs import pipeline_config_from_file
     from sparse_pooling_tpu_torch.configs.presets import preset
 
@@ -44,7 +48,7 @@ def load_config(args):
     cfg = dataclasses.replace(cfg, dataset=ds)
     if args.experiments_dir:
         cfg = dataclasses.replace(cfg, experiments_dir=args.experiments_dir)
-    if args.batch_size:
+    if getattr(args, "batch_size", None):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=args.batch_size))
     return cfg
 

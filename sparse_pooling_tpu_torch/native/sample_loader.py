@@ -2,12 +2,11 @@
 (``native/sample_loader.cpp``).
 
 The library is compiled with ``g++`` at first use into the git-ignored
-``build/sample_loader/`` at the repository root, named by a hash of the
-source and flags (an edited source is rebuilt, an unchanged one loaded as
-is); a failed build raises with the compiler's output. It needs no library
-beyond the C++ runtime. ctypes releases the GIL during each call, as
-``zlib.decompress`` does while it inflates, so a loader thread overlaps the
-training step.
+``build/sample_loader/`` at the repository root (``native/cxx.py``: named by
+a hash of the source and flags; a failed build raises with the compiler's
+output). It needs no library beyond the C++ runtime. ctypes releases the
+GIL during each call, as ``zlib.decompress`` does while it inflates, so a
+loader thread overlaps the training step.
 
 - :func:`decode_png_canvas`: a PNG (8-bit RGB or RGBA, not interlaced) into
   the top left of a zeroed [H, W, 3] u8 canvas: Python reads the chunks and
@@ -20,10 +19,7 @@ training step.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import struct
-import subprocess
 import threading
 import zlib
 from pathlib import Path
@@ -31,40 +27,22 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from sparse_pooling_tpu_torch.native import cxx
+
 SOURCE = Path(__file__).resolve().parent / "sample_loader.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sample_loader"
-CXX_FLAGS = ("-O2", "-std=c++17", "-Wall", "-shared", "-fPIC")
+BUILD_DIR = cxx.BUILD_ROOT / "sample_loader"
+CXX_FLAGS = ("-O2", "-std=c++17", "-Wall")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def _lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"sample_loader-{h.hexdigest()[:16]}.so"
-
-
 def build() -> Path:
     """Compile the library if it is missing; raises with the compiler's
     output if the compile fails. Returns its path."""
 
-    out = _lib_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}.so")
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"sample loader build failed: {cmd[0]} not found") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"sample loader build failed (rc {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: processes that build at once agree
-    return out
+    return cxx.build(SOURCE, BUILD_DIR, "sample_loader", CXX_FLAGS)
 
 
 def library() -> ctypes.CDLL:
@@ -73,16 +51,14 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
             u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-            lib.spt_unfilter_png.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
-                                             ctypes.c_int, ctypes.c_int]
-            lib.spt_unfilter_png.restype = ctypes.c_int
-            lib.spt_load_points.argtypes = [ctypes.c_char_p, f32p, f32p, ctypes.c_int, ctypes.c_int,
-                                            f32p, f32p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-            lib.spt_load_points.restype = ctypes.c_int
-            _lib = lib
+            _lib = cxx.load(build(), {
+                "spt_unfilter_png": ([u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int,
+                                      ctypes.c_int], ctypes.c_int),
+                "spt_load_points": ([ctypes.c_char_p, f32p, f32p, ctypes.c_int, ctypes.c_int, f32p, f32p,
+                                     ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+            })
     return _lib
 
 

@@ -65,6 +65,14 @@ def test_import_check_covers_the_kitti_data_modules():
         assert f"sparse_pooling_tpu_torch/{module}" in names, module
 
 
+def test_import_check_covers_the_eval_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for module in ("runtime/metrics.py", "runtime/predictions.py", "runtime/evaluator.py",
+                   "runtime/profiling.py", "native/cxx.py", "native/kitti_eval.py", "native/pred_format.py",
+                   "experiments/run_evaluation.py", "experiments/run_inference.py"):
+        assert f"sparse_pooling_tpu_torch/{module}" in names, module
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -326,3 +334,68 @@ def test_prefetcher_on_card_pins_and_waits(cuda, tmp_path):
         for t, a in zip(tensors, arrays):
             assert t.is_cuda and t.dtype == torch.from_numpy(a).dtype
             assert np.array_equal(t.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_evaluator_on_card_matches_cpu(cuda, tmp_path):
+    """``Evaluator.run_checkpoint_once`` on the card and on the CPU, same
+    weights, a thin f32 config over a written tree (three val frames at
+    batch 2, the tail padded): A and C launch twice a batch on the card, the
+    same files and rows, numbers within 1e-3 px (2D box) and 1e-4 (3D box,
+    score), AP within 1e-6."""
+
+    from sparse_pooling_tpu_torch import weights
+    from sparse_pooling_tpu_torch.data.synthetic import write_kitti_tree
+    from sparse_pooling_tpu_torch.runtime.evaluator import Evaluator
+
+    root = tmp_path / "tree"
+    write_kitti_tree(str(root), num_frames=5, n_ground=6000, n_obj=300, val_frames=(2, 3, 4))
+    cfg = cars_pyramid_config()
+    m, r = cfg.model, dataclasses.replace
+    model_cfg = r(
+        m,
+        sparse_pool=r(m.sparse_pool, max_points=1024, point_buckets=(512,), pool_channels=4),
+        anchors=r(m.anchors, max_anchors=256),
+        backbone=r(m.backbone, channels=(4, 4, 4, 4), blocks=(1, 1, 1, 1), out_channels=4,
+                   compute_dtype="float32"),
+        rpn=r(m.rpn, roi_channels=4, fusion_channels=8, pre_nms_top_k=128, eval_nms_size=16),
+        avod=r(m.avod, fc_layers=(16,), nms_size=8),
+    )
+    cfg = r(cfg, model=model_cfg, dataset=r(cfg.dataset, root=str(root), split="val"),
+            eval=r(cfg.eval, batch_size=2, kitti_score_threshold=0.0))
+    ext = AreaExtents(x_min=-20.0, x_max=20.0, z_min=0.0, z_max=39.6)
+    init = pl.make_model(model_cfg, ext, device="cpu")
+    weights.init_like_flax(init, seed=0)
+    rows, results = {}, {}
+    for dev in ("cuda", "cpu"):
+        ev = Evaluator(cfg, extents=ext, workdir=str(tmp_path / dev), device=dev)
+        sparse_pool.sparse_pool_patch_kernel.launches = crop_resize.crop_and_resize_group_kernel.launches = 0
+        results[dev] = ev.run_checkpoint_once(1, state_dict=init.state_dict())
+        assert sparse_pool.sparse_pool_patch_kernel.launches == crop_resize.crop_and_resize_group_kernel.launches \
+            == (4 if dev == "cuda" else 0)
+        pred_dir = tmp_path / dev / "predictions" / "kitti_native_eval" / "0" / "1" / "data"
+        rows[dev] = {p.name: [line.split() for line in p.read_text().splitlines()]
+                     for p in sorted(pred_dir.glob("*.txt"))}
+    assert list(rows["cuda"]) == list(rows["cpu"]) == ["000002.txt", "000003.txt", "000004.txt"]
+    assert sum(len(v) for v in rows["cpu"].values()) > 0
+    for name, want in rows["cpu"].items():
+        got = rows["cuda"][name]
+        assert [g[0] for g in got] == [w[0] for w in want], name
+        g = np.array([[float(v) for v in row[3:]] for row in got]).reshape(-1, 13)
+        w = np.array([[float(v) for v in row[3:]] for row in want]).reshape(-1, 13)
+        np.testing.assert_allclose(g[:, 1:5], w[:, 1:5], atol=1e-3, rtol=0)
+        np.testing.assert_allclose(g[:, [0, *range(5, 13)]], w[:, [0, *range(5, 13)]], atol=1e-4, rtol=0)
+    for cls, metrics in results["cpu"]["ap"].items():
+        for metric, diffs in metrics.items():
+            for d, v in diffs.items():
+                assert abs(results["cuda"]["ap"][cls][metric][d] - v) <= 1e-6, (cls, metric, d)
+
+
+@pytest.mark.cuda
+def test_timed_device_loop_on_card(cuda):
+    from sparse_pooling_tpu_torch.runtime.profiling import timed_device_loop
+
+    x = torch.randn(1 << 20, device=cuda)
+    assert 0 < timed_device_loop(lambda: x.mul_(1.0), n=5, device=cuda) < 1.0
+    with pytest.raises(ValueError, match="CUDA"):
+        timed_device_loop(lambda: None, device="cpu")
