@@ -68,7 +68,25 @@ non-zero):
    eval batch (device busy, launches, A's and C's device time beside phase
    3's profiled request); then ``run_evaluation --ckpt_step 4`` and
    ``run_inference`` on two frames;
-10. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+10. the rcnn family (``rcnn_cars_config()``: ``FusionRcnn``, a dense conv
+   RPN over 17600 anchors a frame, no kernel C) at full width: kernel A
+   against its twin at the inputs of a warm-up request, then 3 requests of
+   batch 8 (phase 3's frames, ``eval_nms_size`` 300) with the counts read
+   around exactly these (A twice a request, nothing else), latency, peak
+   memory, a profiled request (busy, launches, A's device time beside phase
+   3's);
+11. rcnn training at full width, batch 8, Adam: A-bwd against its twin at
+   one real step's inputs, ``Trainer.train(4)`` from memory (A and A-bwd
+   twice a step, C and C-bwd never), losses, step times, peak memory, a
+   profiled step;
+12. the rcnn family's narrow parity config on the card against the CPU;
+13. one full-width request of ``people_pyramid_config()`` (two classes, the
+   233x267 anchor grid padded to 4x4 blocks, 64 boxes a unit of kernel C):
+   C and A against their twins at its inputs, then the request (A and C
+   twice, counted) and a profiled one; then one training step of the preset
+   (A, C, A-bwd and C-bwd twice each, counted), C-bwd against its twin at
+   64 boxes a unit;
+14. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
@@ -93,6 +111,7 @@ import torch
 
 from sparse_pooling_tpu_torch import kernels, weights
 from sparse_pooling_tpu_torch.configs import AreaExtents, cars_pyramid_config
+from sparse_pooling_tpu_torch.configs.presets import people_pyramid_config, rcnn_cars_config
 from sparse_pooling_tpu_torch.data.sparse_matrix import build_sparse_pooling_input
 from sparse_pooling_tpu_torch.data.pointcloud import trim_points_to_bucket
 from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame
@@ -109,6 +128,7 @@ SPIN_MIN_S = 50e-6
 FLUSH_BYTES = 128 * 2**20  # written between cold runs: over twice the 50 MB L2
 BATCH, REQUESTS, N_POINTS = 8, 3, 16384
 TRAIN_STEPS, FIXED_STEPS = 6, 10
+RCNN_STEPS = 4
 REPS = 20
 HOST_BURST = 20  # calls per round of host_us: under 200 launches, far from a full queue
 
@@ -323,7 +343,7 @@ def hand_kernel_rows(rows) -> dict:
             for label, key in (("A", "patch_pool"), ("C", "group_crop"))}
 
 
-def profile_phase(model, batch, anchors, cfg, ext, request_ms: float):
+def profile_phase(model, batch, anchors, cfg, ext, request_ms: float, label: str = "where the time goes"):
     """Where the time goes: stage times of one more request (CUDA events),
     then, from torch.profiler over another, device time by kernel category
     and name, the launch count and the device's busy share. Returns
@@ -333,7 +353,7 @@ def profile_phase(model, batch, anchors, cfg, ext, request_ms: float):
     from torch.profiler import ProfilerActivity, profile
 
     stages = staged_request(model, batch, anchors, cfg, ext)
-    print(f"[where the time goes] stages of one request (CUDA events): input build "
+    print(f"[{label}] stages of one request (CUDA events): input build "
           f"{stages[0]:.2f} ms, detector {stages[1]:.2f} ms, decode {stages[2]:.2f} ms")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -424,6 +444,17 @@ def patch_pool_stats(rows, vals, t: int) -> str:
             f"{filled.mean().item():.3f}, max {int(filled.max().item()) if filled.numel() else 0}")
 
 
+def check_a(src, rows, cols, vals, t, tol: float, what: str):
+    """Kernel A against its twin (pooled rows and weight sums); (max abs
+    error, relative error) of the pooled rows."""
+
+    got, got_den = sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True)
+    want, want_den = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, t, True)
+    err, rel = compare(got, want, tol, f"{what}: kernel A {tuple(src.shape)} {src.dtype}")
+    compare(got_den, want_den, 1e-5, f"{what}: kernel A {tuple(src.shape)} {src.dtype} weight sums")
+    return err, rel
+
+
 def kernel_a_phase(calls, flush):
     """Kernel A at the two recorded main-path calls (BEV<-FV, FV<-BEV)."""
 
@@ -433,11 +464,7 @@ def kernel_a_phase(calls, flush):
         b, hs, ws, c = src.shape
         print(f"  A {tuple(src.shape)}->T={t}: {patch_pool_stats(rows, vals, t)}")
         for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
-            x = src.to(dtype)
-            got, got_den = sparse_pool.sparse_pool_patch_kernel(x, rows, cols, vals, t, True)
-            want, want_den = sparse_pool.sparse_pool_patch_plain(x, rows, cols, vals, t, True)
-            err, rel = compare(got, want, tol, f"kernel A {tuple(src.shape)} {dtype}")
-            compare(got_den, want_den, 1e-5, f"kernel A {tuple(src.shape)} {dtype} weight sums")
+            err, rel = check_a(src.to(dtype), rows, cols, vals, t, tol, "main path")
             print(f"  A {tuple(src.shape)}->T={t} {str(dtype):15s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
             if dtype == src.dtype:
                 res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -721,10 +748,28 @@ def parity_config():
     )
 
 
-def card_vs_cpu_phase():
-    """The parity config on the card and on the CPU, same weights and frames."""
+def rcnn_parity_config():
+    """The narrow parity config as the rcnn family (tests/test_torch_rcnn.py,
+    f32): a 16x20 fusion lattice over the narrow extents, 640 anchors."""
 
-    cfg = parity_config()
+    cfg = rcnn_cars_config().model
+    r = dataclasses.replace
+    return r(
+        cfg,
+        image=r(cfg.image, height=64, width=192),
+        sparse_pool=r(cfg.sparse_pool, max_points=1024, pool_channels=4),
+        backbone=r(cfg.backbone, channels=(4, 8, 8, 8), blocks=(1, 1, 1, 1),
+                   out_channels=8, compute_dtype="float32"),
+        rpn=r(cfg.rpn, fusion_channels=16, pre_nms_top_k=640, eval_nms_size=32, train_nms_size=640),
+        avod=r(cfg.avod, fc_layers=(32, 32, 32), nms_size=16),
+    )
+
+
+def card_vs_cpu_phase(cfg=None):
+    """A narrow config (default the cars parity config) on the card and on
+    the CPU, same weights and frames."""
+
+    cfg = cfg or parity_config()
     ext = AreaExtents(x_min=-8.0, x_max=8.0, z_min=0.0, z_max=12.4)
     frames = [synthetic_frame(cfg, n_points=1024, seed=s, image="noise") for s in (0, 1)]
     outs = {}
@@ -739,10 +784,10 @@ def card_vs_cpu_phase():
         check(torch.equal(g_out[key].cpu(), c_out[key]), f"card vs cpu: {key} differs")
     for key in ("objectness", "rpn_offsets"):
         err = (g_out[key].cpu() - c_out[key]).abs().max().item()
-        print(f"  parity config card vs CPU: {key} max abs diff {err:.3e} (tol 1e-4)")
+        print(f"  {cfg.architecture} parity config card vs CPU: {key} max abs diff {err:.3e} (tol 1e-4)")
         check(err <= 1e-4, f"card vs cpu: {key} differs by {err:.3e}")
     agree = (g_det["valid"].cpu() == c_det["valid"]).float().mean().item()
-    print(f"  parity config card vs CPU: detection validity agrees on {agree:.3f} of slots "
+    print(f"  {cfg.architecture} parity config card vs CPU: detection validity agrees on {agree:.3f} of slots "
           f"(info: greedy NMS may reorder near-equal scores)")
 
 
@@ -889,6 +934,15 @@ def earlier_bwd(res, label, call, want, flush) -> None:
         res[f"earlier_{key}"] = res.get(f"earlier_{key}", 0.0) + value
 
 
+def check_a_bwd(g, rows, cols, vals, src_hw, den, dtype, what: str):
+    """A-bwd against its twin in ``dtype``; (max abs error, relative error,
+    max |twin|)."""
+
+    got = sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dtype)
+    want = sparse_pool.sparse_pool_patch_bwd_plain(g, rows, cols, vals, src_hw, den, dtype)
+    return compare_grad(got, want, BWD_TOL[dtype], f"{what}: A-bwd {tuple(g.shape)} {dtype}")
+
+
 def kernel_a_bwd_phase(calls, flush, baseline=None):
     """A-bwd at the two recorded calls of one training step (BEV<-FV and
     FV<-BEV: the gradients of the image and BEV mid maps), in the main path's
@@ -903,9 +957,7 @@ def kernel_a_bwd_phase(calls, flush, baseline=None):
         hs, ws = src_hw
         label = f"A-bwd [{b},{t},{c}]->[{b},{hs},{ws},{c}]"
         for dt in (dtype, torch.float32):
-            got = sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dt)
-            want = sparse_pool.sparse_pool_patch_bwd_plain(g, rows, cols, vals, src_hw, den, dt)
-            err, rel, scale = compare_grad(got, want, BWD_TOL[dt], f"kernel {label} {dt}")
+            err, rel, scale = check_a_bwd(g, rows, cols, vals, src_hw, den, dt, label)
             print(f"  {label} {str(dt):15s} max_abs_err {err:.3e} rel {rel:.3e} of max |twin| "
                   f"{scale:.3e} (tol {BWD_TOL[dt]:g} rel; a zeroed or halved output fails)")
             if dt == dtype:
@@ -1544,6 +1596,228 @@ def eval_phase(device, cfg, root: str, workdir: str, serving) -> None:
     shutil.rmtree(root)
 
 
+# ------------------------------------------------------------ the rcnn family and the people preset
+
+
+def hold_a(calls, what: str) -> float:
+    """Kernel A against its twin on recorded calls, in the path's dtype
+    (tolerance as phase 2); its device time. Returns the max abs error."""
+
+    worst = 0.0
+    for args in calls:
+        src, rows, cols, vals, t = args[:5]
+        err, rel = check_a(src, rows, cols, vals, t, 1e-4, what)
+        ms = median_ms(lambda: sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True), spin=True)
+        print(f"  {what}: A {tuple(src.shape)}->T={t} {src.dtype} max_abs_err {err:.3e} rel {rel:.3e} "
+              f"(tol 1e-4 rel); {ms:.4f} ms device; {patch_pool_stats(rows, vals, t)}")
+        worst = max(worst, err)
+    return worst
+
+
+def serve_requests(model, requests, anchors, cfg, ext, label: str):
+    """``REQUESTS`` timed requests with the counts set to 0 just before and
+    read just after; finite outputs of the expected shapes. Returns (the
+    launches, the request times in ms)."""
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    request_ms = []
+    for r, (_, batch) in enumerate(requests):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, det = run_request(model, batch, anchors, cfg, ext)
+        end.record()
+        end.synchronize()
+        request_ms.append(start.elapsed_time(end))
+        check(all(bool(torch.isfinite(v).all()) for v in (det["boxes_3d"], det["scores"], out["cls_logits"],
+                                                          out["proposals"])), f"{label} request {r}: non-finite")
+        check(det["boxes_3d"].shape == (BATCH, cfg.num_classes, cfg.avod.nms_size, 7)
+              and out["proposals"].shape == (BATCH, cfg.rpn.eval_nms_size, 6),
+              f"{label} request {r}: detections {tuple(det['boxes_3d'].shape)}, proposals "
+              f"{tuple(out['proposals'].shape)}")
+        per_class = det["valid"].sum(dim=(0, 2)).tolist()
+        print(f"[{label}] request {r}: {request_ms[-1]:.2f} ms for batch {BATCH} = "
+              f"{1e3 * BATCH / request_ms[-1]:.1f} frames/s; valid detections per class {per_class}; "
+              f"all outputs finite")
+        check(sum(per_class) > 0, f"{label} request {r}: no valid detections")
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[{label}] launches over {len(requests)} requests: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, request_ms
+
+
+def rcnn_serving_phase(device, cars_serving):
+    """Phase 10: ``rcnn_cars_config()`` at full width answers ``REQUESTS``
+    requests of batch 8 (the phase-3 frames); A against its twin at this
+    path's inputs; where the time goes, and A's device time beside the cars
+    request's (``cars_serving``: phase 3's profiled rows)."""
+
+    cfg = rcnn_cars_config().model
+    ext = AreaExtents()
+    model = pl.make_model(cfg, ext, device=device)
+    weights.init_like_flax(model, seed=0)
+    anchors = pl.static_anchor_grid(cfg, ext, device=device)
+    check(anchors.shape[0] == 17600, f"{anchors.shape[0]} dense anchors a frame, not 88x100x2")
+    requests = [make_batch(cfg, r, device) for r in range(REQUESTS)]
+    a_calls = []
+    with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls):
+        run_request(model, requests[0][1], anchors, cfg, ext)
+    torch.cuda.synchronize()
+    check(len(a_calls) == 2, f"an rcnn request reached kernel A {len(a_calls)} times, not twice")
+    err = hold_a(a_calls, "rcnn serving")
+    del a_calls
+    launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "rcnn serving")
+    check(launches["A"] == 2 * REQUESTS, f"kernel A: {launches['A']} launches in {REQUESTS} rcnn requests")
+    check(launches["C"] == launches["B"] == launches["A-bwd"] == launches["C-bwd"] == 0,
+          "an rcnn request launched B, C or a backward")
+    rows = profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)),
+                         label="rcnn serving: where the time goes")
+    if rows is not None and cars_serving is not None:
+        a_ms = sum(ms for _, ms, _ in rows["A"])
+        cars_a = sum(ms for _, ms, _ in cars_serving["A"])
+        print(f"[rcnn serving] kernel A in the profiled rcnn request {a_ms:.4f} ms of device time "
+              f"({sum(n for *_, n in rows['A'])} device kernels: count, scan, place and gather a call); in "
+              f"phase 3's cars request {cars_a:.4f} ms")
+    return {"launches": launches, "max_abs_err": err, "request_ms": request_ms}
+
+
+def rcnn_training_phase(device):
+    """Phase 11: ``rcnn_cars_config()`` at full width, batch 8, Adam; A-bwd
+    against its twin at one real step's inputs; ``Trainer.train`` for
+    ``RCNN_STEPS`` steps from memory (counts read around exactly these: A
+    and A-bwd twice a step, C and C-bwd never), finite losses and
+    gradients, step times, peak memory, a profiled step."""
+
+    ext = AreaExtents()
+    base = rcnn_cars_config()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, batch_size=BATCH, checkpoint_interval=RCNN_STEPS, summary_interval=1))
+    frames = train_frames(cfg.model, ext, range(100, 100 + 2 * BATCH), N_POINTS)
+    dataset = tr.FrameDataset(frames, buckets=cfg.model.sparse_pool.buckets)
+    workdir = str(kernels.BUILD_DIR.parent / "chip_smoke_rcnn_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = tr.Trainer(cfg, dataset, ext, workdir=workdir, device=device)
+    state = trainer.init_state()
+    step = tr.make_train_step(state.model, state.optimizer, state.scheduler, trainer.anchors_static, cfg, ext)
+    batch = pl.RawSample(*(None if a is None else torch.from_numpy(a).to(device)
+                           for a in next(dataset.batches(BATCH))[0]))
+    a_bwd = []
+    with recording(sparse_pool, "sparse_pool_patch_bwd_kernel", a_bwd):
+        step(batch, state.generator)
+    torch.cuda.synchronize()
+    check(len(a_bwd) == 2, f"an rcnn training step reached A-bwd {len(a_bwd)} times, not twice")
+    worst = 0.0
+    for g, rows, cols, vals, src_hw, den, dtype in (args[:7] for args in a_bwd):
+        err, rel, scale = check_a_bwd(g, rows, cols, vals, src_hw, den, dtype, "rcnn training")
+        ms = median_ms(lambda: sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dtype),
+                       spin=True)
+        print(f"  rcnn training: A-bwd {tuple(g.shape)}->{tuple(src_hw)} {dtype} max_abs_err {err:.3e} rel "
+              f"{rel:.3e} of max |twin| {scale:.3e} (tol {BWD_TOL[dtype]:g} rel); {ms:.4f} ms device")
+        worst = max(worst, err)
+    del a_bwd, state, step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = trainer.train(max_steps=RCNN_STEPS)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = read_scalars(f"{workdir}/summaries")
+    check([r["step"] for r in recs] == list(range(1, RCNN_STEPS + 1)), "missing rcnn step summaries")
+    for r in recs:
+        terms = ", ".join(f"{k} {r[k]:.5f}" for k in LOSS_KEYS)
+        print(f"[rcnn training] step {r['step']}: {terms}; grad_norm {r['grad_norm']:.4f}; num_rpn_pos "
+              f"{r['num_rpn_pos']:.2f} num_s2_pos {r['num_s2_pos']:.2f}; step {r['step_ms']:.2f} ms (CUDA "
+              f"events) = {1e3 * BATCH / r['step_ms']:.1f} frames/s")
+        check(all(np.isfinite(r[k]) for k in (*LOSS_KEYS, "grad_norm")), f"rcnn step {r['step']}: non-finite")
+    check(finite_grads(state.model), "non-finite rcnn gradients after the last step")
+    check(sum(r["num_rpn_pos"] for r in recs) > 0, "no RPN positives sampled in rcnn training")
+    print(f"[rcnn training] {RCNN_STEPS} steps of batch {BATCH}: launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()) + f"; peak memory {peak:.2f} GiB")
+    for name, per_step in (("A", 2), ("A-bwd", 2), ("B", 0), ("C", 0), ("C-bwd", 0)):
+        check(launches[name] == per_step * RCNN_STEPS,
+              f"kernel {name}: {launches[name]} launches in {RCNN_STEPS} rcnn steps, not {per_step} a step")
+    check(ckpt_mod.all_steps(trainer.ckpt_dir) == [RCNN_STEPS], "no rcnn checkpoint")
+    step_ms = float(np.median([r["step_ms"] for r in recs[1:]]))
+    step = tr.make_train_step(state.model, state.optimizer, state.scheduler, trainer.anchors_static, cfg, ext)
+    profile_train_step(step, batch, state.generator, step_ms)
+    shutil.rmtree(workdir)
+    return {"launches": launches, "max_abs_err": worst, "step_ms": step_ms}
+
+
+def people_phase(device):
+    """Phase 13: one full-width request of ``people_pyramid_config()`` (two
+    classes, a 0.3 m anchor stride over the 233x267 grid that 4x4 blocks pad,
+    64 anchors a unit of kernel C): C and A against their twins at its
+    inputs, then the request with the counts read around it."""
+
+    cfg = people_pyramid_config().model
+    ext = AreaExtents()
+    model = pl.make_model(cfg, ext, device=device)
+    weights.init_like_flax(model, seed=0)
+    anchors = pl.static_anchor_grid(cfg, ext, device=device)
+    requests = [make_batch(cfg, 0, device)]
+    a_calls, c_calls = [], []
+    with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls), \
+            recording(crop_resize, "crop_and_resize_group_kernel", c_calls):
+        run_request(model, requests[0][1], anchors, cfg, ext)
+    torch.cuda.synchronize()
+    check(len(a_calls) == 2 and len(c_calls) == 2, "a people request did not reach A and C twice")
+    worst_c = 0.0
+    for img, boxes, crop_hw, patch in (args[:4] for args in c_calls):
+        check(boxes.shape[2] == 64, f"kernel C unit of {boxes.shape[2]} boxes, not 4*4*4")
+        for dtype, tol in ((img.dtype, 2e-2 if img.dtype == torch.bfloat16 else 1e-5), (torch.float32, 1e-5)):
+            x = img.to(dtype)
+            got = crop_resize.crop_and_resize_group_kernel(x, boxes, crop_hw, patch)
+            want = crop_resize.crop_and_resize_group_plain(x, boxes, crop_hw, patch)
+            err, rel = compare(got, want, tol, f"people: kernel C {tuple(img.shape)} {dtype}")
+            if dtype == img.dtype:
+                worst_c = max(worst_c, err)
+            print(f"  people: C {tuple(img.shape)} units {tuple(boxes.shape[:3])} patch {patch} {dtype} "
+                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
+        ms = median_ms(lambda: crop_resize.crop_and_resize_group_kernel(img, boxes, crop_hw, patch), spin=True)
+        print(f"  people: C {tuple(img.shape)} {ms:.4f} ms device")
+    worst_a = hold_a(a_calls, "people")
+    del a_calls, c_calls
+    launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "people")
+    check(launches["A"] == 2 and launches["C"] == 2, "the people request did not launch A and C twice")
+    profile_phase(model, requests[0][1], anchors, cfg, ext, request_ms[0], label="people: where the time goes")
+
+    # one training step of the preset (f32 parameters): C-bwd at 64 boxes a unit
+    base = people_pyramid_config()
+    tcfg = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=BATCH))
+    model = model.float()
+    opt, sched = tr.build_optimizer(model.parameters(), tcfg)
+    step = tr.make_train_step(model, opt, sched, anchors, tcfg, ext)
+    batch = pl.stack_frames(train_frames(cfg, ext, range(100, 100 + BATCH), N_POINTS), device=device)
+    c_bwd = []
+    reset_counts()
+    with recording(crop_resize, "crop_and_resize_group_bwd_kernel", c_bwd):
+        metrics = step(batch, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    train_launches = counts()
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()) and finite_grads(model),
+          "people training step: non-finite losses or gradients")
+    check(all(train_launches[k] == 2 for k in ("A", "C", "A-bwd", "C-bwd")),
+          f"people training step launches {train_launches}, not 2 each of A, C, A-bwd and C-bwd")
+    worst_c_bwd = 0.0
+    for grad, boxes, image_shape, crop_hw, patch, dtype in (args[:6] for args in c_bwd):
+        got = crop_resize.crop_and_resize_group_bwd_kernel(grad, boxes, image_shape, crop_hw, patch, dtype)
+        want = crop_resize.crop_and_resize_group_bwd_plain(grad, boxes, image_shape, crop_hw, patch, dtype)
+        err, rel, scale = compare_grad(got, want, BWD_TOL[dtype], f"people: C-bwd {tuple(grad.shape)}")
+        worst_c_bwd = max(worst_c_bwd, err)
+        print(f"  people training: C-bwd {tuple(grad.shape)}->{tuple(image_shape)} patch {patch} {dtype} "
+              f"max_abs_err {err:.3e} rel {rel:.3e} of max |twin| {scale:.3e} (tol {BWD_TOL[dtype]:g} rel)")
+    print(f"[people] one training step of batch {BATCH}: total {float(metrics['total']):.5f}; launches "
+          + ", ".join(f"{k} {v}" for k, v in train_launches.items()))
+    return {"launches": launches, "train_launches": train_launches, "request_ms": request_ms,
+            "max_abs_err": {"A": worst_a, "C": worst_c, "C-bwd": worst_c_bwd}}
+
+
 def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1627,36 +1901,11 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     del flush
 
     # 3. main path: 3 requests of batch 8, counts read around exactly these
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    n_valid = 0
-    request_ms = []
-    for r, (_, batch) in enumerate(requests):
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out, det = run_request(model, batch, anchors, cfg, ext)
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end)
-        request_ms.append(ms)
-        finite = all(bool(torch.isfinite(v).all()) for v in (det["boxes_3d"], det["scores"],
-                                                             out["cls_logits"], out["proposals"]))
-        check(finite, f"request {r}: non-finite outputs")
-        check(det["boxes_3d"].shape == (BATCH, cfg.num_classes, cfg.avod.nms_size, 7),
-              f"request {r}: detections of shape {tuple(det['boxes_3d'].shape)}")
-        nv = int(det["valid"].sum())
-        n_valid += nv
-        print(f"[main path] request {r}: {ms:.2f} ms for batch {BATCH} = {1e3 * BATCH / ms:.1f} frames/s; "
-              f"{nv} valid detections; all outputs finite")
-    launches_a = sparse_pool.sparse_pool_patch_kernel.launches
-    launches_c = crop_resize.crop_and_resize_group_kernel.launches
-    print(f"[main path] launches over {REQUESTS} requests: A {launches_a}, C {launches_c}, "
-          f"B {ell_sparse_pool.sparse_pool_ell_kernel.launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(launches_a >= 2 * REQUESTS, "kernel A was not launched twice per request")
-    check(launches_c >= 2 * REQUESTS, "kernel C was not launched twice per request")
-    check(n_valid > 0, "no valid detections")
+    launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "main path")
+    for name, per_request in (("A", 2), ("C", 2), ("B", 0), ("A-bwd", 0), ("C-bwd", 0)):
+        check(launches[name] == per_request * REQUESTS,
+              f"kernel {name}: {launches[name]} launches in {REQUESTS} requests, not {per_request} a request")
+    launches_a, launches_c = launches["A"], launches["C"]
     serving_kernels = profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)))
 
     # 4. the ELL path (kernel B): request 0's 8 frames, one launch per direction
@@ -1700,6 +1949,16 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     print("[evaluation]")
     eval_phase(device, kitti_cfg, kitti_root, kitti_workdir, serving_kernels)
 
+    # 10-13. the rcnn family: serving, training, card vs CPU; the people preset
+    print("[rcnn serving]")
+    rcnn_serving = rcnn_serving_phase(device, serving_kernels)
+    print("[rcnn training]")
+    rcnn_training = rcnn_training_phase(device)
+    print("[rcnn card vs CPU]")
+    card_vs_cpu_phase(rcnn_parity_config())
+    print("[people]")
+    people = people_phase(device)
+
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
          "sparse_pooling_tpu/ops/sparse_pool.py:176", launches_a, res_a),
@@ -1719,6 +1978,13 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     print(f"[ell batch {BATCH}] " + json.dumps(res_b))
     print("[A-bwd, both calls] " + json.dumps(res_a_bwd))
     print("[C-bwd, both calls] " + json.dumps(res_c_bwd))
+    print("[rcnn and people paths] " + json.dumps({
+        "rcnn_serving": {"launches": rcnn_serving["launches"], "max_abs_err_A": rcnn_serving["max_abs_err"],
+                         "request_ms": rcnn_serving["request_ms"]},
+        "rcnn_training": {"launches": rcnn_training["launches"], "max_abs_err_A_bwd": rcnn_training["max_abs_err"],
+                          "step_ms": rcnn_training["step_ms"]},
+        "people": {"launches": people["launches"], "train_launches": people["train_launches"],
+                   "max_abs_err": people["max_abs_err"], "request_ms": people["request_ms"]}}))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))

@@ -9,8 +9,8 @@ keeps ``train_nms_size`` proposals, detaches them where
 by 1 / keep, as flax's ``nn.Dropout``). Every tensor
 carries a leading batch dim; feature maps are NHWC. Implemented options are
 the ones the cars preset runs (quad-filtered or per-position grouped RPN
-crops on strided maps; exact stage-2 crops; early fusion; box_4c; the flip
-head or the angle vector); the others raise
+crops on strided maps; exact stage-2 crops; early fusion; box_4c or box_8c;
+the flip head or the angle vector); the others raise
 ``NotImplementedError`` and are queued in ROADMAP.md.
 """
 
@@ -33,6 +33,11 @@ from sparse_pooling_tpu_torch.ops.crop_resize import (
     crop_and_resize_px_batch,
 )
 from sparse_pooling_tpu_torch.ops.nms import nms_batch, top_k_nms_batch
+
+
+# stage-2 regression width per ``avod.box_rep``; "offsets" is the rcnn
+# family's (models/fusion_rcnn.py)
+STAGE2_BOX_DIMS = {"offsets": 6, "box_4c": 10, "box_8c": 24}
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,6 +98,34 @@ class Stage2Head(nn.Module):
         return self.cls(x), self.box_reg(x), self.orientation(x), flip
 
 
+def px_scales(cfg: ModelConfig, extents: AreaExtents, device):
+    """Scales from normalised boxes to pixels: BEV boxes over the content
+    grid (not the padded map), image boxes over the canvas; [4] each."""
+
+    grid_h, grid_w = cfg.bev.grid_hw(extents)
+    img_h, img_w = cfg.image.height, cfg.image.width
+    return (torch.tensor([grid_h - 1.0, grid_w - 1.0] * 2, device=device),
+            torch.tensor([img_h - 1.0, img_w - 1.0] * 2, device=device))
+
+
+def stage2_rois(bev_feat, img_feat, proposals, p2, cfg: ModelConfig, extents: AreaExtents):
+    """Exact ``avod.roi_size`` crops of both decode-stride maps at the
+    proposals [B, P, 6]: (BEV, image) ROIs [B, P, S, S, C], pixel boxes
+    mapped onto the ``decode_stride`` lattice by cell-centre alignment."""
+
+    bev_px_scale, img_px_scale = px_scales(cfg, extents, proposals.device)
+    ds = cfg.backbone.decode_stride
+    s2 = (cfg.avod.roi_size, cfg.avod.roi_size)
+
+    def to_feat(px):
+        return (px - (ds - 1) / 2) / ds
+
+    prop_bev = projection.project_to_bev(proposals, extents)
+    prop_img = projection.project_to_image_space(proposals, p2, (cfg.image.height, cfg.image.width))
+    return (crop_and_resize_px_batch(bev_feat, to_feat(prop_bev * bev_px_scale), s2),
+            crop_and_resize_px_batch(img_feat, to_feat(prop_img * img_px_scale), s2))
+
+
 class SparsePoolingDetector(nn.Module):
     """Batch-native two-branch fusion detector."""
 
@@ -107,8 +140,8 @@ class SparsePoolingDetector(nn.Module):
             raise NotImplementedError("strided stage-2 crops are not ported yet")
         if c.avod.fusion_type != "early" or c.avod.fusion_method != "mean":
             raise NotImplementedError("only early mean fusion is ported")
-        if c.avod.box_rep != "box_4c":
-            raise NotImplementedError(f"box_rep {c.avod.box_rep!r} is not ported yet")
+        if c.avod.box_rep not in ("box_4c", "box_8c"):
+            raise ValueError(f"unknown box_rep '{c.avod.box_rep}'")
         self.cfg, self.extents = cfg, extents
         dt = compute_dtype(cfg)
         bb = c.backbone
@@ -135,7 +168,7 @@ class SparsePoolingDetector(nn.Module):
         s2 = c.avod.roi_size
         self.stage2_head = Stage2Head(
             s2 * s2 * bb.out_channels, c.avod.fc_layers, c.num_classes, dt,
-            box_dim=10, flip_head=c.avod.explicit_flip_head,
+            box_dim=STAGE2_BOX_DIMS[c.avod.box_rep], flip_head=c.avod.explicit_flip_head,
         )
 
     def _rpn_rois(self, feat, boxes_px_full, stride, proj, n_var, quad):
@@ -196,15 +229,7 @@ class SparsePoolingDetector(nn.Module):
         anchor_valid = inputs["anchor_valid"]
         bev_boxes = projection.project_to_bev(anchors, ext)
         img_boxes = projection.project_to_image_space(anchors, inputs["p2"], img_hw)
-        grid_h, grid_w = c.bev.grid_hw(ext)
-        dev = anchors.device
-        bev_px_scale = torch.tensor(
-            [grid_h - 1.0, grid_w - 1.0, grid_h - 1.0, grid_w - 1.0], device=dev
-        )
-        img_px_scale = torch.tensor(
-            [img_hw[0] - 1.0, img_hw[1] - 1.0, img_hw[0] - 1.0, img_hw[1] - 1.0], device=dev
-        )
-        ds = c.backbone.decode_stride
+        bev_px_scale, img_px_scale = px_scales(c, ext, anchors.device)
         quad = (
             c.rpn.roi_quad
             if anchor_ops.quad_supported(c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
@@ -238,16 +263,7 @@ class SparsePoolingDetector(nn.Module):
         if c.avod.stop_gradient_proposals:
             proposals = proposals.detach()
 
-        # stage 2: exact crops on the decode-stride maps
-        prop_bev = projection.project_to_bev(proposals, ext)
-        prop_img = projection.project_to_image_space(proposals, inputs["p2"], img_hw)
-        s2 = c.avod.roi_size
-
-        def to_feat(px):
-            return (px - (ds - 1) / 2) / ds
-
-        bev_rois2 = crop_and_resize_px_batch(bev_feat, to_feat(prop_bev * bev_px_scale), (s2, s2))
-        img_rois2 = crop_and_resize_px_batch(img_feat, to_feat(prop_img * img_px_scale), (s2, s2))
+        bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext)
         cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
             [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
             keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
@@ -277,14 +293,16 @@ def decode_detections(
     """Stage-2 decode + per-class BEV NMS -> boxes_3d [B, C, K, 7], scores
     [B, C, K], valid [B, C, K]."""
 
-    if cfg.avod.box_rep != "box_4c":
-        raise NotImplementedError(f"box_rep {cfg.avod.box_rep!r} is not ported yet")
     proposals = outputs["proposals"]
     plane = ground_plane[:, None, :]
     prop_box3d = encoders.anchor_to_box_3d(proposals)
-    prop_4c = encoders.box_3d_to_box_4c(prop_box3d, plane)
-    final_4c = encoders.offsets_to_box_4c(prop_4c, outputs["box_offsets"])
-    boxes_3d = encoders.box_4c_to_box_3d(final_4c, plane)
+    if cfg.avod.box_rep == "box_8c":
+        final = encoders.offsets_to_box_8c(encoders.box_3d_to_corners(prop_box3d), outputs["box_offsets"])
+        boxes_3d = encoders.box_8c_to_box_3d(final)
+    else:
+        final_4c = encoders.offsets_to_box_4c(encoders.box_3d_to_box_4c(prop_box3d, plane),
+                                              outputs["box_offsets"])
+        boxes_3d = encoders.box_4c_to_box_3d(final_4c, plane)
 
     ry = boxes_3d[..., 6]
     if "flip_logits" in outputs:
@@ -295,8 +313,17 @@ def decode_detections(
         ry = torch.where(torch.abs(delta) > math.pi / 2, ry - torch.sign(delta) * math.pi, ry)
     boxes_3d = torch.cat([boxes_3d[..., :6], ry[..., None]], dim=-1)
 
-    probs = torch.softmax(outputs["cls_logits"], dim=-1)
     bev_boxes = projection.project_to_bev(encoders.box_3d_to_anchor(boxes_3d), extents)
+    return per_class_nms(boxes_3d, bev_boxes, outputs, cfg)
+
+
+def per_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor, outputs: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Final per-class BEV NMS of decoded boxes_3d [B, P, 7] (BEV boxes [B,
+    P, 4]) on the softmax of ``cls_logits`` over the valid proposals ->
+    boxes_3d [B, C, K, 7], scores [B, C, K], valid [B, C, K]."""
+
+    probs = torch.softmax(outputs["cls_logits"], dim=-1)
     k = cfg.avod.nms_size
     all_boxes, all_scores, all_valid = [], [], []
     for ci in range(cfg.num_classes):

@@ -3,8 +3,9 @@
 Port of ``sparse_pooling_tpu.models.loss`` (``detector_loss`` vmapped over
 the batch by ``detector_loss_batch``), written batch-native: each term is
 taken per frame, as the reference's vmap does, then averaged over the batch.
-Implemented for the cars preset's stage-2 encoding, box_4c, with the flip
-head's loss where the outputs carry ``flip_logits``; box_8c raises.
+The stage-2 regression target follows ``avod.box_rep`` (box_4c or box_8c;
+"offsets" for the rcnn family, whose loss this is too),
+with the flip head's loss where the outputs carry ``flip_logits``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def detector_loss_batch(
     gt_boxes_3d: torch.Tensor,  # [B, G, 7] padded
     gt_valid: torch.Tensor,  # [B, G] bool
     gt_classes: torch.Tensor,  # [B, G] int (1..C)
-    ground_plane: torch.Tensor,  # [B, 4]
+    ground_plane: Optional[torch.Tensor],  # [B, 4]; box_4c only
     cfg: ModelConfig,
     extents: AreaExtents = AreaExtents(),
     generator: Optional[torch.Generator] = None,
@@ -45,8 +46,6 @@ def detector_loss_batch(
     sampling priorities; otherwise they are drawn from ``generator`` on the
     outputs' device, RPN first."""
 
-    if cfg.avod.box_rep != "box_4c":
-        raise NotImplementedError(f"box_rep {cfg.avod.box_rep!r} is not ported yet")
     mb_cfg = cfg.mini_batch
     anchors = outputs["anchors"][..., :6]
     proposals = outputs["proposals"]
@@ -81,13 +80,22 @@ def detector_loss_batch(
     cls_onehot = F.one_hot(mb2.cls_target, cfg.num_classes + 1).to(torch.float32)
     s2_cls_loss = weighted_softmax_ce(_take(outputs["cls_logits"], mb2.indices), cls_onehot, mb2.weights)
     sel_gt_3d = _take(gt_boxes_3d, mb2.gt_idx)
-    plane = ground_plane[:, None, :]
-    prop_4c = encoders.box_3d_to_box_4c(encoders.anchor_to_box_3d(_take(proposals, mb2.indices)), plane)
-    gt_4c = encoders.box_3d_to_box_4c(sel_gt_3d, plane)
+    sel_prop = _take(proposals, mb2.indices)
+    if cfg.avod.box_rep == "offsets":  # the rcnn family's 6-d anchor offsets
+        reg_targets2 = encoders.anchor_to_offset(sel_prop, encoders.box_3d_to_anchor(sel_gt_3d))
+    elif cfg.avod.box_rep == "box_8c":
+        reg_targets2 = encoders.box_8c_to_offsets(
+            encoders.box_3d_to_corners(encoders.anchor_to_box_3d(sel_prop)),
+            encoders.box_3d_to_corners(sel_gt_3d),
+        ).flatten(-2)
+    else:
+        plane = ground_plane[:, None, :]
+        reg_targets2 = encoders.box_4c_to_offsets(
+            encoders.box_3d_to_box_4c(encoders.anchor_to_box_3d(sel_prop), plane),
+            encoders.box_3d_to_box_4c(sel_gt_3d, plane),
+        )
     pos_w2 = mb2.weights * mb2.is_pos.to(torch.float32)
-    s2_reg_loss = weighted_smooth_l1(
-        _take(outputs["box_offsets"], mb2.indices), encoders.box_4c_to_offsets(prop_4c, gt_4c), pos_w2
-    )
+    s2_reg_loss = weighted_smooth_l1(_take(outputs["box_offsets"], mb2.indices), reg_targets2, pos_w2)
     s2_ang_loss = weighted_smooth_l1(
         _take(outputs["orientation"], mb2.indices), encoders.angle_to_vector(sel_gt_3d[..., 6]), pos_w2
     )

@@ -1,12 +1,14 @@
 """End-to-end pipeline: raw batch -> model outputs -> detections or losses.
 
 Port of ``sparse_pooling_tpu.models.pipeline``: the packed voxelizer, the
-in-graph image resize, the SHPL COO build and the quad anchor filter build
-the model inputs on the device; ``forward_batch_fn`` runs the detector
-(serving under ``no_grad``; ``train=True`` with path drop and dropout drawn
-from a ``torch.Generator``), ``decode_batch`` the final NMS and
-``loss_batch`` the training losses. Entry points take ``device`` (default
-``"cuda"``) and raise when it is unavailable.
+in-graph image resize, the SHPL COO build and the quad anchor filter (the
+dense lattice grid, all valid, for ``architecture="rcnn"``) build the model
+inputs on the device; ``forward_batch_fn`` runs the detector (serving under
+``no_grad``; ``train=True`` with path drop and dropout drawn from a
+``torch.Generator``), ``decode_batch`` the final NMS and ``loss_batch`` the
+training losses, each dispatched on the architecture: the AVOD-style
+``SparsePoolingDetector`` or the MV3D-style ``FusionRcnn``. Entry points
+take ``device`` (default ``"cuda"``) and raise when it is unavailable.
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ import torch
 from sparse_pooling_tpu_torch import resolve_device
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.detector import SparsePoolingDetector, decode_detections
+from sparse_pooling_tpu_torch.models.fusion_rcnn import (
+    FusionRcnn,
+    decode_rcnn_detections,
+    rcnn_anchor_grid,
+)
 from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
@@ -53,10 +60,14 @@ def stack_frames(frames: Sequence[Dict[str, np.ndarray]], device="cuda") -> RawS
 
 
 def static_anchor_grid(cfg: ModelConfig, extents: AreaExtents, device="cuda") -> torch.Tensor:
-    """Anchor grid constant [N, 8] f32 with y = 0 (filled per frame)."""
+    """Anchor grid constant [N, 8] f32 with y = 0 (filled per frame): the
+    z-major position grid, or the rcnn family's dense fusion lattice."""
 
-    plane0 = np.array([0.0, -1.0, 0.0, 0.0])
-    grid = anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
+    if cfg.architecture == "rcnn":
+        grid = rcnn_anchor_grid(cfg, extents)
+    else:
+        plane0 = np.array([0.0, -1.0, 0.0, 0.0])
+        grid = anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
     return torch.from_numpy(grid).to(resolve_device(device))
 
 
@@ -71,10 +82,11 @@ def anchors_with_ground_y(anchors_static: torch.Tensor, plane: torch.Tensor) -> 
     return out
 
 
-def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="cuda") -> SparsePoolingDetector:
-    """Build the detector on ``device`` in eval mode (parameters from
-    PyTorch's default init; load ``weights.from_flax`` or
-    ``weights.init_like_flax`` before use)."""
+def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="cuda"):
+    """Build the detector of ``cfg.architecture`` (``SparsePoolingDetector``
+    or ``FusionRcnn``) on ``device`` in eval mode (parameters from PyTorch's
+    default init; load ``weights.from_flax`` or ``weights.init_like_flax``
+    before use)."""
 
     dev = resolve_device(device)
     expected_stride = 2 ** (len(cfg.backbone.channels) - 1)
@@ -106,9 +118,12 @@ def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="c
             f"anchors.max_anchors={cfg.anchors.max_anchors} must be divisible "
             "by the class x rotation variant count"
         )
-    if cfg.architecture != "avod":
-        raise NotImplementedError(f"architecture {cfg.architecture!r} is not ported yet")
-    return SparsePoolingDetector(cfg, extents).to(dev).eval()
+    if cfg.backbone.remat:
+        raise NotImplementedError("backbone.remat (activation checkpointing) is not ported yet")
+    families = {"avod": SparsePoolingDetector, "rcnn": FusionRcnn}
+    if cfg.architecture not in families:
+        raise ValueError(f"unknown architecture '{cfg.architecture}'")
+    return families[cfg.architecture](cfg, extents).to(dev).eval()
 
 
 def build_model_inputs_batch(
@@ -134,29 +149,32 @@ def build_model_inputs_batch(
     m_bev, m_fv = sparse_build.build_coo_device(
         batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
     )
-    # 0/1 indicator for threshold <= 1 (the tier ranking sums this raster),
-    # raw counts above
-    raster = counts if cfg.anchors.density_threshold > 1 else (counts > 0).to(torch.float32)
-    occupancy = bev_device.unpack_s2d_raster(raster, h)
 
     anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
-    if cfg.rpn.dense_grid or not anchor_ops.quad_supported(
+    if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
+        anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
+                                                   device=anchors_frame.device)
+    elif cfg.rpn.dense_grid or not anchor_ops.quad_supported(
         cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad
     ):
         raise NotImplementedError("only the quad-block anchor filter is ported")
-    filtered = anchor_ops.filter_anchor_quads_grid(
-        anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-        max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad,
-        density_threshold=cfg.anchors.density_threshold,
-    )
+    else:
+        # 0/1 indicator for threshold <= 1 (the tier ranking sums this
+        # raster), raw counts above
+        raster = counts if cfg.anchors.density_threshold > 1 else (counts > 0).to(torch.float32)
+        anchors, valid = anchor_ops.filter_anchor_quads_grid(
+            anchors_frame, bev_device.unpack_s2d_raster(raster, h), extents, cfg.bev, cfg.anchors,
+            max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad,
+            density_threshold=cfg.anchors.density_threshold,
+        )
     return {
         "bev_input": bev_input,
         "bev_pre_packed": True,
         "image": image,
         "m_bev": m_bev,
         "m_fv": m_fv,
-        "anchors": filtered.anchors,
-        "anchor_valid": filtered.valid,
+        "anchors": anchors,
+        "anchor_valid": valid,
         "p2": batch.p2,
         "path_keep": path_keep,
     }
@@ -185,7 +203,7 @@ def sample_path_keep(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def forward_batch_fn(
-    model: SparsePoolingDetector,
+    model,
     batch: RawSample,
     anchors_static: torch.Tensor,
     cfg: ModelConfig,
@@ -210,11 +228,9 @@ def forward_batch_fn(
 
 def loss_batch(outputs, batch: RawSample, cfg: ModelConfig, extents: AreaExtents,
                generator: Optional[torch.Generator] = None, noise=None) -> Dict[str, torch.Tensor]:
-    """Training losses of a batch (``models.loss.detector_loss_batch``); the
-    sampling noise comes from ``generator`` unless ``noise`` is given."""
+    """Training losses of a batch, either family (``models.loss.detector_loss_batch``);
+    the sampling noise comes from ``generator`` unless ``noise`` is given."""
 
-    if cfg.architecture != "avod":
-        raise NotImplementedError(f"architecture {cfg.architecture!r} is not ported yet")
     return detector_loss_batch(
         outputs, batch.gt_boxes_3d, batch.gt_valid, batch.gt_classes, batch.ground_plane,
         cfg, extents, generator=generator, noise=noise,
@@ -225,6 +241,6 @@ def loss_batch(outputs, batch: RawSample, cfg: ModelConfig, extents: AreaExtents
 def decode_batch(outputs, ground_plane: torch.Tensor, cfg: ModelConfig, extents: AreaExtents):
     """Final detections: boxes_3d [B, C, K, 7], scores [B, C, K], valid."""
 
-    if cfg.architecture != "avod":
-        raise NotImplementedError(f"architecture {cfg.architecture!r} is not ported yet")
+    if cfg.architecture == "rcnn":
+        return decode_rcnn_detections(outputs, cfg, extents, ground_plane=ground_plane)
     return decode_detections(outputs, ground_plane, cfg, extents)

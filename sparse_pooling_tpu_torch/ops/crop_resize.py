@@ -16,11 +16,12 @@ Port of ``sparse_pooling_tpu.ops.crop_resize``:
   2x2 window per sample with starts clamped to (h-2, w-2); the interpolation
   fractions are cast to the feature dtype as in the reference. Plain PyTorch
   both ways (the backward mirrors ``_crop_with_vjp``: f32 corner weights,
-  one ``index_add_`` in the reference's accumulator dtype); hand kernels are
-  queued in ROADMAP.md.
+  one ``index_add_`` in the reference's accumulator dtype, and where the
+  boxes need it their gradient, ``_box_grad_from_corners``); hand kernels
+  are queued in ROADMAP.md.
 
-Only the images take a gradient: boxes that require one raise (the RPN's
-anchors and the detached proposals need none; the box gradient is queued).
+The grouped crop's boxes take no gradient: boxes that require one raise (its
+boxes are the RPN's anchors; the box gradient is queued).
 
 Boxes are [y1, x1, y2, x2] in pixel coordinates of the source map; sample
 grid y = y1 + i * (y2 - y1) / (ch - 1) (crop size 1 samples the centre),
@@ -126,24 +127,63 @@ def crop_and_resize_px_bwd_plain(grad: torch.Tensor, boxes_px: torch.Tensor, ima
     return out.reshape(b, h, w, c).to(dtype)
 
 
+def crop_and_resize_px_box_grad(grad: torch.Tensor, images: torch.Tensor,
+                                boxes_px: torch.Tensor) -> torch.Tensor:
+    """Box gradient [B, N, 4] of ``crop_and_resize_px_batch``, the
+    reference's ``_box_grad_from_corners``: the f32 corner values re-gathered,
+    the bilinear blend chained analytically to each sample's fractions, then
+    through the (clipped) sample grid to the boxes."""
+
+    b, h, w, c = images.shape
+    ch, cw = grad.shape[2], grad.shape[3]
+    n = boxes_px.shape[1]
+    g = grad.to(torch.float32)
+    with torch.enable_grad():
+        boxes = boxes_px.detach().requires_grad_(True)
+        ys, xs = _sample_grid(boxes, h, w, (ch, cw))
+    y0 = torch.clamp(torch.floor(ys.detach()).to(torch.int64), 0, max(h - 2, 0))
+    x0 = torch.clamp(torch.floor(xs.detach()).to(torch.int64), 0, max(w - 2, 0))
+    dy = (ys.detach() - y0)[:, :, :, None, None]
+    dx = (xs.detach() - x0)[:, :, None, :, None]
+    flat = images.detach().reshape(b * h * w, c).to(torch.float32)
+    base = (torch.arange(b, device=g.device) * (h * w))[:, None, None, None]
+
+    def corner(yy, xx):
+        lin = base + yy[:, :, :, None] * w + xx[:, :, None, :]
+        return flat[lin.reshape(-1)].reshape(b, n, ch, cw, c)
+
+    y1, x1 = torch.clamp_max(y0 + 1, h - 1), torch.clamp_max(x0 + 1, w - 1)
+    p00, p01, p10, p11 = corner(y0, x0), corner(y0, x1), corner(y1, x0), corner(y1, x1)
+    top = p00 * (1 - dx) + p01 * dx
+    bot = p10 * (1 - dx) + p11 * dx
+    g_dy = torch.sum(g * (bot - top), dim=(3, 4))  # [B, N, ch]
+    g_dx = torch.sum(g * ((p01 - p00) * (1 - dy) + (p11 - p10) * dy), dim=(2, 4))  # [B, N, cw]
+    (g_boxes,) = torch.autograd.grad((ys, xs), boxes, (g_dy, g_dx))
+    return g_boxes
+
+
 class _CropPx(torch.autograd.Function):
     @staticmethod
     def forward(ctx, images, boxes_px, crop_hw):
-        ctx.save_for_backward(boxes_px)
+        ctx.save_for_backward(images if boxes_px.requires_grad else None, boxes_px)
         ctx.image_shape, ctx.dtype = tuple(images.shape), images.dtype
         return _crop_px_forward(images, boxes_px, crop_hw)
 
     @staticmethod
     def backward(ctx, grad):
-        (boxes_px,) = ctx.saved_tensors
-        return crop_and_resize_px_bwd_plain(grad, boxes_px, ctx.image_shape, ctx.dtype), None, None
+        images, boxes_px = ctx.saved_tensors
+        g_images = g_boxes = None
+        if ctx.needs_input_grad[0]:
+            g_images = crop_and_resize_px_bwd_plain(grad, boxes_px, ctx.image_shape, ctx.dtype)
+        if ctx.needs_input_grad[1]:
+            g_boxes = crop_and_resize_px_box_grad(grad, images, boxes_px)
+        return g_images, g_boxes, None
 
 
 def crop_and_resize_px_batch(images: torch.Tensor, boxes_px: torch.Tensor, crop_hw) -> torch.Tensor:
     """[B, H, W, C] + [B, N, 4] pixel boxes -> [B, N, ch, cw, C]; the
-    gradient reaches the images only."""
+    gradient reaches the images and, where they require it, the boxes."""
 
-    _no_box_grad(boxes_px, "crop_and_resize_px_batch")
     return _CropPx.apply(images, boxes_px, (int(crop_hw[0]), int(crop_hw[1])))
 
 

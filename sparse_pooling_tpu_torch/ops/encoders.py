@@ -1,11 +1,13 @@
 """Box and anchor encodings used by inference and the losses (elementwise
 f32).
 
-Port of the box_4c and anchor encodings of ``sparse_pooling_tpu.ops.encoders``:
+Port of ``sparse_pooling_tpu.ops.encoders``:
   box_3d   [x, y, z, l, w, h, ry]  (y = bottom centre, ry about y)
   anchor   [x, y, z, dim_x, dim_y, dim_z] (axis-aligned)
   offsets  [(dx)/dim_x, (dy)/dim_y, (dz)/dim_z, log dim ratios]
   box_4c   [x1..x4, z1..z4, h1, h2]
+  box_8c   [8, 3] corners (``box_3d_to_corners`` order), regressed as
+           per-corner differences over the proposal's AABB diagonal
 All functions are rank-polymorphic over leading dims.
 """
 
@@ -106,6 +108,52 @@ def box_3d_to_corners(boxes_3d: torch.Tensor) -> torch.Tensor:
     bottom = torch.stack([gx, gy, gz], dim=-1)  # [..., 4, 3]
     top = torch.stack([gx, gy - h[..., None].expand_as(gx), gz], dim=-1)
     return torch.cat([bottom, top], dim=-2)
+
+
+def _aabb_diagonal(corners: torch.Tensor) -> torch.Tensor:
+    """[..., 8, 3] corners -> [..., 1, 1] length of their axis-aligned
+    bounding box's diagonal, floored at 1e-6."""
+
+    ext = corners.amax(dim=-2) - corners.amin(dim=-2)
+    return torch.clamp_min(torch.sqrt(torch.sum(ext**2, dim=-1)), 1e-6)[..., None, None]
+
+
+def box_8c_to_offsets(prop_corners: torch.Tensor, gt_corners: torch.Tensor) -> torch.Tensor:
+    """Stage-2 box_8c target [..., 8, 3]: per-corner differences over the
+    proposal's AABB diagonal."""
+
+    return (gt_corners - prop_corners) / _aabb_diagonal(prop_corners)
+
+
+def offsets_to_box_8c(prop_corners: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``box_8c_to_offsets``; ``offsets`` may be flat [..., 24]."""
+
+    if offsets.shape[-1] == 24:
+        offsets = offsets.reshape(*offsets.shape[:-1], 8, 3)
+    return prop_corners + offsets * _aabb_diagonal(prop_corners)
+
+
+def box_8c_to_box_3d(corners: torch.Tensor) -> torch.Tensor:
+    """[..., 8, 3] corners -> [..., 7] box_3d: centroid x/z, mean face
+    heights for y/h, mean edge vectors for l/w/ry (ry in (-pi/2, pi/2])."""
+
+    bottom, top = corners[..., :4, :], corners[..., 4:, :]
+    xc = torch.mean(corners[..., 0], dim=-1)
+    zc = torch.mean(corners[..., 2], dim=-1)
+    y_bottom = torch.mean(bottom[..., 1], dim=-1)
+    h = torch.abs(y_bottom - torch.mean(top[..., 1], dim=-1))
+
+    def mid(a, b):
+        return (bottom[..., a, :] + bottom[..., b, :]) / 2
+
+    lvec = mid(0, 1) - mid(2, 3)  # along +l
+    wvec = mid(0, 3) - mid(1, 2)  # along +w
+    l = torch.sqrt(lvec[..., 0] ** 2 + lvec[..., 2] ** 2)
+    w = torch.sqrt(wvec[..., 0] ** 2 + wvec[..., 2] ** 2)
+    ry = torch.atan2(-lvec[..., 2], lvec[..., 0])
+    ry = torch.where(ry > math.pi / 2, ry - math.pi, ry)
+    ry = torch.where(ry <= -math.pi / 2, ry + math.pi, ry)
+    return torch.stack([xc, y_bottom, zc, l, w, h, ry], dim=-1)
 
 
 def _unit_plane(ground_plane: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Parameters: carry a flax parameter tree over, or draw a seeded init.
 
 ``from_flax`` maps the JAX package's parameter tree (nested dicts of numpy
-arrays, e.g. ``jax.tree.map(np.asarray, params)``) onto the port's state
-dict; module paths match by name. It never imports flax. Conversions:
-  * conv kernels HWIO -> OIHW;
+arrays, e.g. ``jax.tree.map(np.asarray, params)``) of either detector family
+(``SparsePoolingDetector`` or ``FusionRcnn``) onto the port's state dict;
+module paths match by name. It never imports flax. Conversions:
+  * conv kernels HWIO -> OIHW (the rcnn RPN's 1x1 [1, 1, C, 2R] -> [2R, C, 1, 1]);
   * dense kernels (in, out) -> (out, in); ROI features are flattened in
     NHWC (S, S, C) order on both sides, so fc1 needs no permutation;
   * ``nn.ConvTranspose`` kernels (flax does not flip, PyTorch does): flipped

@@ -226,6 +226,8 @@ C_CASES = {  # name: (H, W, C, patch, V)
     "c32_p16_v32": (24, 28, 32, 16, 32),
     # kernel C needs 52 KB for one f32 unit here (its window alone is 51 KB)
     "c32_p20_v32": (28, 32, 32, 20, 32),
+    # the people preset's unit: 4x4 positions of 4 variants, an 11-pixel window
+    "c8_p11_v64": (24, 28, 8, 11, 64),
 }
 C_BATCH, C_UNITS = 2, 37
 

@@ -16,6 +16,7 @@ import torch
 
 from sparse_pooling_tpu_torch import kernels
 from sparse_pooling_tpu_torch.configs import AreaExtents, cars_pyramid_config
+from sparse_pooling_tpu_torch.configs.presets import rcnn_cars_config
 from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool
@@ -73,18 +74,27 @@ def test_import_check_covers_the_eval_modules():
         assert f"sparse_pooling_tpu_torch/{module}" in names, module
 
 
+def test_import_check_covers_the_rcnn_module():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert "sparse_pooling_tpu_torch/models/fusion_rcnn.py" in names
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["make_model", "static_anchor_grid", "stack_frames"])
+@pytest.mark.parametrize("entry", ["make_model", "static_anchor_grid", "stack_frames", "make_model rcnn",
+                                   "static_anchor_grid rcnn"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
     cfg = cars_pyramid_config().model
+    rcnn = rcnn_cars_config().model
     calls = {
         "make_model": lambda dev: pl.make_model(cfg, device=dev),
         "static_anchor_grid": lambda dev: pl.static_anchor_grid(cfg, AreaExtents(), device=dev),
         "stack_frames": lambda dev: pl.stack_frames([synthetic_frame(cfg, 64, 0)], device=dev),
+        "make_model rcnn": lambda dev: pl.make_model(rcnn, device=dev),
+        "static_anchor_grid rcnn": lambda dev: pl.static_anchor_grid(rcnn, AreaExtents(), device=dev),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]("cuda")
@@ -172,8 +182,16 @@ def test_gradients_of_the_coo_and_the_boxes_raise():
     boxes = (torch.rand(2, 3, 4, 4) * 5).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="boxes"):
         crop_resize.crop_and_resize_group_einsum_px(src, boxes, (3, 3), 4)
-    with pytest.raises(NotImplementedError, match="boxes"):
-        crop_resize.crop_and_resize_px_batch(src, boxes[:, :, 0], (3, 3))
+
+
+def test_exact_crop_boxes_take_a_gradient():
+    """The rcnn family's proposals keep their gradient into the exact crop;
+    ``test_torch_rcnn.py`` holds its value against ``jax.vjp``."""
+
+    src, _, _, _ = _small_inputs()
+    boxes_px = (torch.rand(2, 3, 4, generator=torch.Generator().manual_seed(2)) * 5).requires_grad_(True)
+    crop_resize.crop_and_resize_px_batch(src, boxes_px, (3, 3)).sum().backward()
+    assert torch.isfinite(boxes_px.grad).all() and boxes_px.grad.abs().max() > 0
 
 
 def test_backward_wrappers_refuse_cpu_tensors():
@@ -302,6 +320,39 @@ def test_train_step_on_card_counts_backward_launches(cuda):
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(torch.isfinite(p).all() for p in model.parameters())
 
+
+
+@pytest.mark.cuda
+def test_rcnn_on_card_counts_kernel_launches(cuda):
+    """A thin rcnn model: a request launches A twice and C never (dense RPN);
+    a training step adds A-bwd twice and no C-bwd."""
+
+    from sparse_pooling_tpu_torch.runtime import trainer as tr
+
+    cfg = rcnn_cars_config()
+    model_cfg = dataclasses.replace(
+        cfg.model, backbone=dataclasses.replace(cfg.model.backbone, channels=(8, 8, 8, 16), out_channels=8),
+        avod=dataclasses.replace(cfg.model.avod, fc_layers=(64,)),
+        rpn=dataclasses.replace(cfg.model.rpn, fusion_channels=16, train_nms_size=64, eval_nms_size=64),
+    )
+    cfg = dataclasses.replace(cfg, model=model_cfg)
+    model = pl.make_model(model_cfg, device=cuda).float()
+    anchors = pl.static_anchor_grid(model_cfg, AreaExtents(), device=cuda)
+    batch = pl.stack_frames([synthetic_frame(model_cfg, 4096, s, image="noise") for s in range(2)], device=cuda)
+    kernels_ = (sparse_pool.sparse_pool_patch_kernel, crop_resize.crop_and_resize_group_kernel,
+                sparse_pool.sparse_pool_patch_bwd_kernel, crop_resize.crop_and_resize_group_bwd_kernel)
+    before = [k.launches for k in kernels_]
+    det = pl.decode_batch(pl.forward_batch_fn(model, batch, anchors, model_cfg, AreaExtents()),
+                          batch.ground_plane, model_cfg, AreaExtents())
+    assert [k.launches - b for k, b in zip(kernels_, before)] == [2, 0, 0, 0]
+    assert torch.isfinite(det["boxes_3d"]).all()
+    opt, sched = tr.build_optimizer(model.parameters(), cfg)
+    step = tr.make_train_step(model, opt, sched, anchors, cfg, AreaExtents())
+    before = [k.launches for k in kernels_]
+    metrics = step(batch, torch.Generator(device=cuda).manual_seed(0))
+    assert [k.launches - b for k, b in zip(kernels_, before)] == [2, 0, 2, 0]
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(torch.isfinite(p).all() for p in model.parameters())
 
 
 @pytest.mark.cuda
