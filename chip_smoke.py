@@ -86,7 +86,39 @@ non-zero):
    twice, counted) and a profiled one; then one training step of the preset
    (A, C, A-bwd and C-bwd twice each, counted), C-bwd against its twin at
    64 boxes a unit;
-14. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+14-18. the AVOD detector's model options at full width (the cars preset
+   with one switch each, batch 8, phase 3's frames for requests and phase
+   6's for steps; counts read around exactly each path's requests or
+   steps):
+   P1 (14) ``rpn.roi_quad`` 1, the position filter: kernel C at 8192 units
+   of 2 boxes a view and frame (patch 8), held against its twins at a
+   warm-up request's inputs, and C-bwd at a warm-up step's, as phases 2 and
+   6 hold them (bf16 and f32, C-bwd the same bits twice, times, bounds,
+   ``F.grid_sample``); 3 requests (A and C twice each) and 2 training steps
+   (A, C, A-bwd, C-bwd twice each);
+   P2 (15) ``rpn.dense_grid``: 44800 anchors a frame under the occupancy
+   mask; C and C-bwd at 1400 units of 32 boxes, patch 10 (BEV) and 22400
+   units of 2, patch 8 (image), held as in P1; 1 request, 1 step;
+   P3 (16) reference-exact: ``roi_quad`` 1, stride-1 RPN crops,
+   ``decode_stride`` 1 without space-to-depth (the unpacked voxelizer at
+   704x800, full-resolution decoders, exact 3x3 crops of 16384 anchors in
+   both views): 1 request and 1 step, A twice each and C never; the step's
+   peak memory beside phase 6's; the spread of two steps' gradients (the
+   exact crops' bf16 ``index_add_`` sums in CUDA's atomic order);
+   P4 (17) ``avod.bev_roi_stride`` 4, the strided stage-2 BEV crop: 1
+   request;
+   P5 (18) ``avod.fusion_type`` late, and deep with ``fusion_method``
+   concat: 1 request each; ``backbone.remat``: one step's forward and
+   backward (A, C, A-bwd, C-bwd twice each) with its peak memory beside the
+   same step without remat and phase 6's, its gradients within 2^-6 of each
+   parameter's largest of the step without it (same weights, batch,
+   generator seed and noise; deterministic algorithms and kernel A's bf16
+   accumulation, so that the forward gives the same bits twice), beside
+   the spread of two steps without it.
+   Each path prints its launches, latency or step time, busy share (a
+   profiled request or step) and peak memory; one ``[model options P1-P5]``
+   JSON line holds them;
+19. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
@@ -379,7 +411,7 @@ def profile_phase(model, batch, anchors, cfg, ext, request_ms: float, label: str
         print(f"  {ms:9.3f} ms {n:6d}x  [{cat}]")
     for name, ms, n in rows[:15]:
         print(f"  {ms:9.3f} ms {n:6d}x  {name[:110]}")
-    return hand_kernel_rows(rows)
+    return {**hand_kernel_rows(rows), "busy_ms": busy, "launches": sum(r[2] for r in rows)}
 
 
 def compare(got, want, tol_rel: float, what: str):
@@ -517,6 +549,19 @@ def kernel_a_phase(calls, flush):
     return res
 
 
+def window_clamped_grid(boxes, h: int, w: int, crop_hw, patch: int) -> torch.Tensor:
+    """``F.grid_sample``'s grid [B, P*V*ch, cw, 2] (x, y in [-1, 1],
+    align_corners) at kernel C's window-clamped sample coordinates, where
+    bilinear sampling equals the crop."""
+
+    ye, xe = crop_resize._group_coords(boxes, h, w, crop_hw, patch)  # [B, P*V, ch|cw]
+    b, n, ch = ye.shape
+    cw = xe.shape[-1]
+    gy = (2 * ye / (h - 1) - 1)[..., :, None].expand(b, n, ch, cw)
+    gx = (2 * xe / (w - 1) - 1)[..., None, :].expand(b, n, ch, cw)
+    return torch.stack([gx, gy], -1).reshape(b, n * ch, cw, 2)
+
+
 def kernel_c_phase(calls, flush):
     """Kernel C at the two recorded main-path calls (BEV, image). Also the
     window gather alone (rows 3 and 4 of PERF.md's table: the TPU probes
@@ -549,15 +594,9 @@ def kernel_c_phase(calls, flush):
         kern = timings(kernel_call, flush)
         plain = median_ms(lambda: crop_resize.crop_and_resize_group_plain(img, boxes, crop_hw, patch))
         # library: grid_sample (bilinear, align_corners) at the window-clamped coords
-        ys, xs, y0, x0 = crop_resize._group_starts(boxes, h, w, crop_hw, patch)
-        py, px = min(patch, h), min(patch, w)
-        ye = y0[..., None, None] + torch.clamp(ys - y0[..., None, None], 0.0, py - 1.0)
-        xe = x0[..., None, None] + torch.clamp(xs - x0[..., None, None], 0.0, px - 1.0)
-        _, pu, v, ch = ys.shape
-        cw = xs.shape[-1]
-        gy = (2 * ye / (h - 1) - 1)[..., :, None].expand(b, pu, v, ch, cw)
-        gx = (2 * xe / (w - 1) - 1)[..., None, :].expand(b, pu, v, ch, cw)
-        grid = torch.stack([gx, gy], -1).reshape(b, pu * v * ch, cw, 2)
+        _, pu, v, _ = boxes.shape
+        ch, cw = crop_hw
+        grid = window_clamped_grid(boxes, h, w, crop_hw, patch)
         nchw = img.float().permute(0, 3, 1, 2).contiguous()
 
         def lib_call():
@@ -568,6 +607,8 @@ def kernel_c_phase(calls, flush):
         lib_out = lib_call().permute(0, 2, 3, 1).reshape(b, pu, v, ch, cw, c)
         lib_err = (lib_out - f32_truth).abs().max().item()
         lib = timings(lib_call, flush)
+        _, _, y0, x0 = crop_resize._group_starts(boxes, h, w, crop_hw, patch)
+        py, px = min(patch, h), min(patch, w)
         py_idx = torch.arange(py, device=img.device)
         px_idx = torch.arange(px, device=img.device)
         pix = ((torch.arange(b, device=img.device)[:, None, None, None] * h + y0[..., None, None]
@@ -579,7 +620,7 @@ def kernel_c_phase(calls, flush):
         print(f"  C {tuple(img.shape)}: kernel {timing_text(kern)}; plain {plain:.4f} ms call; "
               f"grid_sample(f32) {timing_text(lib)} (max diff to f32 evaluation {lib_err:.2e}); "
               f"bound {bnd:.4f} ({need / 1e6:.2f} MB)")
-        # the window gather alone: the twin's index gather (ops/crop_resize.py:107-108)
+        # the window gather alone: the index gather of crop_and_resize_group_plain
         flat, lin = img.reshape(b * h * w, c), pix.reshape(-1)
         gather_ms = median_ms(lambda: flat[lin])
         win_bytes = touched * c * img.element_size() + lin.numel() * c * img.element_size()
@@ -1061,15 +1102,9 @@ def kernel_c_bwd_phase(calls, flush, baseline=None):
                                                                     patch, dtype), flush)
         plain = median_ms(lambda: crop_resize.crop_and_resize_group_bwd_plain(
             grad, boxes, image_shape, crop_hw, patch, dtype))
-        ys, xs, y0, x0 = crop_resize._group_starts(boxes, h, w, crop_hw, patch)
-        py, px = min(patch, h), min(patch, w)
-        ye = y0[..., None, None] + torch.clamp(ys - y0[..., None, None], 0.0, py - 1.0)
-        xe = x0[..., None, None] + torch.clamp(xs - x0[..., None, None], 0.0, px - 1.0)
-        _, pu, v, ch = ys.shape
-        cw = xs.shape[-1]
-        gy = (2 * ye / (h - 1) - 1)[..., :, None].expand(b, pu, v, ch, cw)
-        gx = (2 * xe / (w - 1) - 1)[..., None, :].expand(b, pu, v, ch, cw)
-        grid = torch.stack([gx, gy], -1).reshape(b, pu * v * ch, cw, 2)
+        _, pu, v, _ = boxes.shape
+        ch, cw = crop_hw
+        grid = window_clamped_grid(boxes, h, w, crop_hw, patch)
         x_req = torch.zeros((b, c, h, w), device=grad.device, requires_grad=True)
         lib_fwd = torch.nn.functional.grid_sample(x_req, grid, mode="bilinear", padding_mode="border",
                                                   align_corners=True)
@@ -1121,7 +1156,11 @@ def finite_grads(model) -> bool:
     return all(p.grad is None or bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
 
-def profile_train_step(step, batch, gen, step_ms: float) -> None:
+def profile_train_step(step, batch, gen, step_ms: float):
+    """torch.profiler over one more step: device busy, launches, busy share,
+    the split by category. Returns (busy ms, launches), or None without
+    device time."""
+
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1135,7 +1174,7 @@ def profile_train_step(step, batch, gen, step_ms: float) -> None:
     )
     if not rows:
         print("  torch.profiler recorded no device time: training step split not measured")
-        return
+        return None
     busy = sum(r[1] for r in rows)
     print(f"  [profile] one training step: device busy {busy:.2f} ms in {sum(r[2] for r in rows)} "
           f"kernel launches ({len(rows)} distinct kernels); busy share {busy / step_ms:.3f} of the "
@@ -1149,6 +1188,7 @@ def profile_train_step(step, batch, gen, step_ms: float) -> None:
         print(f"  {ms:9.3f} ms {n:6d}x  [{cat}]")
     for name, ms, n in rows[:12]:
         print(f"  {ms:9.3f} ms {n:6d}x  {name[:110]}")
+    return busy, sum(r[2] for r in rows)
 
 
 LOSS_KEYS = ("total", "rpn_objectness", "rpn_regression", "cls", "reg", "orientation", "flip")
@@ -1260,7 +1300,7 @@ def training_phase(device, flush, bwd_baseline=None):
           f"{totals[-1]:.5f} after; trace " + " ".join(f"{t:.4f}" for t in totals))
     check(totals[-1] < totals[0], "the loss on the fixed batch did not fall")
     shutil.rmtree(workdir)
-    return res_a_bwd, res_c_bwd, launches, step_ms
+    return res_a_bwd, res_c_bwd, launches, step_ms, peak
 
 
 def train_card_vs_cpu_phase() -> None:
@@ -1818,6 +1858,274 @@ def people_phase(device):
             "max_abs_err": {"A": worst_a, "C": worst_c, "C-bwd": worst_c_bwd}}
 
 
+# ------------------------------------------------------------ model options
+
+
+def cars_option(**switches):
+    """``cars_pyramid_config().model`` with ``switches``: {section: {field:
+    value}}."""
+
+    cfg = cars_pyramid_config().model
+    for section, fields in switches.items():
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **fields)})
+    return cfg
+
+
+def option_serving(device, label: str, cfg, n_requests: int, per_request: dict, flush=None,
+                   want_units=None):
+    """``n_requests`` requests of batch 8 of ``cfg`` at full width (phase 3's
+    frames, seeded weights): with ``want_units`` kernel C against its twins
+    at the warm-up request's inputs (``kernel_c_phase``: bf16 and f32, times,
+    bound, ``F.grid_sample``) after checking its units; the launches counted
+    around exactly the requests (``per_request`` of each kernel), latency,
+    peak memory, a profiled request. Returns (model, anchors, record)."""
+
+    ext = AreaExtents()
+    model = pl.make_model(cfg, ext, device=device)
+    weights.init_like_flax(model, seed=0)
+    anchors = pl.static_anchor_grid(cfg, ext, device=device)
+    requests = [make_batch(cfg, r, device) for r in range(n_requests)]
+    c_calls = []
+    with recording(crop_resize, "crop_and_resize_group_kernel", c_calls):
+        run_request(model, requests[0][1], anchors, cfg, ext)
+    torch.cuda.synchronize()
+    units = [(tuple(a[0].shape), a[1].shape[1], a[1].shape[2], a[3]) for a in c_calls]
+    print(f"[{label}] anchors a frame {anchors.shape[0]} in the grid; kernel C calls (map, units a frame, "
+          f"boxes a unit, patch): {units}")
+    rec = {"c_units": units}
+    if want_units is not None:
+        check([u[1:] for u in units] == want_units, f"{label}: kernel C units {units}, not {want_units}")
+        rec["C"], _ = kernel_c_phase(c_calls, flush)
+    del c_calls
+    launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, label)
+    rec.update(launches=launches, request_ms=request_ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    for name, n in per_request.items():
+        check(launches[name] == n * n_requests,
+              f"{label}: kernel {name} {launches[name]} launches in {n_requests} requests, not {n} a request")
+    rows = profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)),
+                         label=f"{label}: where the time goes")
+    if rows is not None:
+        rec.update(busy_ms=rows["busy_ms"], device_launches=rows["launches"],
+                   busy_share=rows["busy_ms"] / float(np.median(request_ms)))
+    return model, anchors, rec
+
+
+def option_training(device, label: str, cfg, model, anchors, n_steps: int, per_step: dict, flush=None):
+    """``n_steps`` timed training steps of batch 8 (f32 parameters, Adam)
+    after one warm-up step whose C-bwd inputs, with ``flush``, hold C-bwd
+    against its twins (``kernel_c_bwd_phase``: bf16 and f32, the same bits
+    twice, times, bound, ``F.grid_sample``'s input gradient); the launches
+    counted around exactly the timed steps, their losses, peak memory, a
+    profiled step. Returns a record."""
+
+    ext = AreaExtents()
+    base = cars_pyramid_config()
+    tcfg = dataclasses.replace(base, model=cfg, train=dataclasses.replace(base.train, batch_size=BATCH))
+    model = model.float()
+    opt, sched = tr.build_optimizer(model.parameters(), tcfg)
+    step = tr.make_train_step(model, opt, sched, anchors, tcfg, ext)
+    batch = pl.stack_frames(train_frames(cfg, ext, range(100, 100 + BATCH), N_POINTS), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    c_bwd = []
+    with recording(crop_resize, "crop_and_resize_group_bwd_kernel", c_bwd):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    rec = {}
+    if flush is not None:
+        rec["C-bwd"] = kernel_c_bwd_phase(c_bwd, flush)
+    del c_bwd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for i in range(n_steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch, gen)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()) and finite_grads(model),
+              f"{label} step {i}: non-finite losses or gradients")
+        print(f"[{label}] step {i}: " + ", ".join(f"{k} {float(metrics[k]):.5f}" for k in LOSS_KEYS)
+              + f"; num_rpn_pos {float(metrics['num_rpn_pos']):.2f}; {step_ms[-1]:.2f} ms (CUDA events)")
+    launches = counts()
+    rec.update(launches=launches, step_ms=step_ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{label}] {n_steps} steps of batch {BATCH}: launches " + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; peak memory {rec['peak_gib']:.2f} GiB")
+    for name, n in per_step.items():
+        check(launches[name] == n * n_steps,
+              f"{label}: kernel {name} {launches[name]} launches in {n_steps} steps, not {n} a step")
+    prof = profile_train_step(step, batch, gen, float(np.median(step_ms)))
+    if prof is not None:
+        rec.update(busy_ms=prof[0], device_launches=prof[1], busy_share=prof[0] / float(np.median(step_ms)))
+    return rec
+
+
+def step_gradients(model, cfg, batch, anchors, seed: int, noise):
+    """One training step's forward and backward (no update) with the path
+    drop and dropout drawn from a generator seeded ``seed``: (total loss,
+    {parameter: gradient})."""
+
+    ext = AreaExtents()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=batch.points.device).manual_seed(seed)
+    out = pl.forward_batch_fn(model, batch, anchors, cfg, ext, train=True, generator=gen)
+    losses = pl.loss_batch(out, batch, cfg, ext, noise=noise)
+    losses["total"].backward()
+    return losses["total"].item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def grad_gap(a: dict, b: dict) -> tuple:
+    """Largest gap between two gradient sets relative to each parameter's
+    largest gradient in ``a``: (gap, parameter)."""
+
+    return max(((b[n] - a[n]).abs().max().item() / max(a[n].abs().max().item(), 1e-12), n) for n in a)
+
+
+def options_phase(device, train_peak: float):
+    """Phases 14-18, the AVOD detector's model options at full width, batch 8
+    (``cars_option``): P1 the position filter (``rpn.roi_quad`` 1), P2 the
+    dense grid, P3 reference-exact crops, P4 the strided stage-2 BEV crop, P5
+    late and deep-concat fusion and remat. Returns one record a path."""
+
+    out = {}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    both = {"A": 2, "C": 2, "B": 0, "A-bwd": 0, "C-bwd": 0}
+    train = {"A": 2, "C": 2, "A-bwd": 2, "C-bwd": 2, "B": 0}
+
+    print("[P1: the position filter, rpn.roi_quad 1]")
+    cfg = cars_option(rpn=dict(roi_quad=1))
+    model, anchors, rec = option_serving(device, "P1 serving", cfg, REQUESTS, both, flush,
+                                         want_units=[(8192, 2, 8), (8192, 2, 8)])
+    rec["train"] = option_training(device, "P1 training", cfg, model, anchors, 2, train, flush)
+    out["P1"] = rec
+    del model, anchors
+
+    print("[P2: the dense grid, rpn.dense_grid with bev_roi_group 4]")
+    cfg = cars_option(rpn=dict(dense_grid=True))
+    model, anchors, rec = option_serving(device, "P2 serving", cfg, 1, both, flush,
+                                         want_units=[(1400, 32, 10), (22400, 2, 8)])
+    check(anchors.shape[0] == 44800, f"P2: {anchors.shape[0]} anchors a frame, not 140 x 160 x 2")
+    rec["train"] = option_training(device, "P2 training", cfg, model, anchors, 1, train, flush)
+    out["P2"] = rec
+    del model, anchors
+
+    print("[P3: reference-exact crops, the unpacked voxelizer, full-resolution decoders]")
+    cfg = cars_option(rpn=dict(roi_quad=1, bev_roi_stride=1, img_roi_stride=1),
+                      backbone=dict(decode_stride=1, space_to_depth=False))
+    exact = {"A": 2, "C": 0, "B": 0, "A-bwd": 0, "C-bwd": 0}
+    model, anchors, rec = option_serving(device, "P3 serving", cfg, 1, exact)
+    rec["train"] = option_training(device, "P3 training", cfg, model, anchors, 1,
+                                   {"A": 2, "A-bwd": 2, "C": 0, "C-bwd": 0, "B": 0})
+    print(f"[P3 training] peak memory {rec['train']['peak_gib']:.2f} GiB; phase 6's (cars, decode "
+          f"stride 2, a second model and its Adam state besides) {train_peak:.2f} GiB")
+    # the exact crops' plain backward sums bf16 in CUDA's atomic order: the
+    # spread of two steps' gradients on the same inputs, the forward made
+    # to give the same bits twice (kernel A's bf16 accumulation sums in the
+    # points' order; see remat_step)
+    cfg = dataclasses.replace(cfg, sparse_pool=dataclasses.replace(cfg.sparse_pool, accum_dtype="bfloat16"))
+    twin = pl.make_model(cfg, AreaExtents(), device=device).float()
+    twin.load_state_dict(model.state_dict())
+    del model
+    batch = pl.stack_frames(train_frames(cfg, AreaExtents(), range(100, 100 + BATCH), N_POINTS), device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    noise = (torch.rand((BATCH, cfg.anchors.max_anchors), generator=g, device=device),
+             torch.rand((BATCH, cfg.rpn.train_nms_size), generator=g, device=device))
+    l1, g1 = step_gradients(twin, cfg, batch, anchors, 0, noise)
+    l2, g2 = step_gradients(twin, cfg, batch, anchors, 0, noise)
+    spread, where = grad_gap(g1, g2)
+    print(f"[P3 training] two steps on the same inputs (kernel A's bf16 accumulation): total {l1!r} / {l2!r}; "
+          f"gradients differ by up to {spread:.3e} of a parameter's largest ({where}): the exact crops' bf16 "
+          f"index_add_ and A-bwd's f32 sums in the order of CUDA's atomics (information, not a check)")
+    rec["train"]["grad_spread"] = spread
+    out["P3"] = rec
+    del twin, anchors, batch, g1, g2
+
+    print("[P4: the strided stage-2 BEV crop, avod.bev_roi_stride 4]")
+    _, _, rec = option_serving(device, "P4 serving", cars_option(avod=dict(bev_roi_stride=4)), 1, both)
+    out["P4"] = rec
+
+    print("[P5: stage-2 fusion types and remat]")
+    for name, switches in (("late", dict(fusion_type="late")),
+                           ("deep_concat", dict(fusion_type="deep", fusion_method="concat"))):
+        _, _, out[f"P5 {name}"] = option_serving(device, f"P5 {name} serving", cars_option(avod=switches), 1, both)
+    out["P5 remat"] = remat_step(device, train_peak)
+    del flush
+    return out
+
+
+def remat_step(device, train_peak: float) -> dict:
+    """P5's remat step: the cars model with and without ``backbone.remat``
+    on the same weights, batch, generator seed and sampling noise: peak
+    memory of each step, the launches of the remat step, and its gradients
+    against the step without it, to ``BWD_TOL[bf16]`` (2^-6) of each
+    parameter's largest, beside two steps without it.
+
+    The forward must give the same bits twice for the comparison to mean
+    anything: the RPN's NMS and the minibatch sampling turn a last-bit
+    difference into other proposals and other gradients. So the steps run
+    under deterministic algorithms (cuDNN, the exact crops' ``index_add_``)
+    with kernel A in its bf16 accumulation mode, which sums each row in the
+    points' order (its f32 mode sums in the order its atomics place the
+    points: two steps without remat then differ in their loss at 1e-5)."""
+
+    ext = AreaExtents()
+    plain_cfg = cars_option(sparse_pool=dict(accum_dtype="bfloat16"))
+    remat_cfg = cars_option(sparse_pool=dict(accum_dtype="bfloat16"), backbone=dict(remat=True))
+    batch = pl.stack_frames(train_frames(plain_cfg, ext, range(100, 100 + BATCH), N_POINTS), device=device)
+    anchors = pl.static_anchor_grid(plain_cfg, ext, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    noise = (torch.rand((BATCH, plain_cfg.anchors.max_anchors), generator=g, device=device),
+             torch.rand((BATCH, plain_cfg.rpn.train_nms_size), generator=g, device=device))
+    models = {}
+    for name, cfg in (("plain", plain_cfg), ("remat", remat_cfg)):
+        models[name] = pl.make_model(cfg, ext, device=device).float()
+    weights.init_like_flax(models["plain"], seed=0)
+    models["remat"].load_state_dict(models["plain"].state_dict())
+    rec, grads = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, cfg in (("plain", plain_cfg), ("remat", remat_cfg), ("plain again", plain_cfg)):
+            model = models[name.split()[0]]
+            step_gradients(model, cfg, batch, anchors, 0, noise)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            total, grads[name] = step_gradients(model, cfg, batch, anchors, 0, noise)
+            end.record()
+            end.synchronize()
+            rec[name] = {"total": total, "ms": start.elapsed_time(end), "launches": counts(),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, r in rec.items():
+        print(f"[P5 remat] {name}: forward and backward {r['ms']:.2f} ms (CUDA events, no update); total "
+              f"{r['total']:.6f}; peak memory {r['peak_gib']:.2f} GiB; launches "
+              + ", ".join(f"{k} {v}" for k, v in r["launches"].items()))
+    print(f"[P5 remat] totals: without {rec['plain']['total']!r}, with {rec['remat']['total']!r}, without "
+          f"again {rec['plain again']['total']!r}")
+    print(f"[P5 remat] peak memory with remat {rec['remat']['peak_gib']:.2f} GiB, without "
+          f"{rec['plain']['peak_gib']:.2f} GiB; phase 6's {train_peak:.2f} GiB (a second model and its "
+          f"Adam state besides)")
+    check(all(rec["remat"]["launches"][k] == 2 for k in ("A", "C", "A-bwd", "C-bwd")),
+          f"P5 remat step launches {rec['remat']['launches']}, not 2 each of A, C, A-bwd and C-bwd")
+    gap, where = grad_gap(grads["plain"], grads["remat"])
+    spread, s_where = grad_gap(grads["plain"], grads["plain again"])
+    print(f"[P5 remat] gradients with remat against without: up to {gap:.3e} of a parameter's largest "
+          f"({where}); two steps without remat: {spread:.3e} ({s_where}); tol {BWD_TOL[torch.bfloat16]:g}")
+    check(gap <= BWD_TOL[torch.bfloat16], f"P5 remat: gradients differ by {gap:.3e} relative ({where})")
+    out = {**rec, "grad_gap": gap, "grad_spread": spread}
+    print("[P5 remat] the remat step profiled:")
+    prof = profile_train_step(lambda b, _: step_gradients(models["remat"], remat_cfg, b, anchors, 0, noise),
+                              batch, None, rec["remat"]["ms"])
+    if prof is not None:
+        out.update(busy_ms=prof[0], device_launches=prof[1], busy_share=prof[0] / rec["remat"]["ms"])
+    return out
+
+
 def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1934,7 +2242,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
 
     # 6. training at full width: backward kernels, Trainer, resume, fixed batch
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
-    res_a_bwd, res_c_bwd, train_launches, frame_step_ms = training_phase(device, flush, bwd_baseline)
+    res_a_bwd, res_c_bwd, train_launches, frame_step_ms, train_peak = training_phase(device, flush, bwd_baseline)
     del flush
 
     # 7. one training step on the card against the CPU
@@ -1958,6 +2266,9 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     card_vs_cpu_phase(rcnn_parity_config())
     print("[people]")
     people = people_phase(device)
+
+    # 14-18. the AVOD detector's model options at full width
+    options = options_phase(device, train_peak)
 
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
@@ -1985,6 +2296,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
                           "step_ms": rcnn_training["step_ms"]},
         "people": {"launches": people["launches"], "train_launches": people["train_launches"],
                    "max_abs_err": people["max_abs_err"], "request_ms": people["request_ms"]}}))
+    print("[model options P1-P5] " + json.dumps(options))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))

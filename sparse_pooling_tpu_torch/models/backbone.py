@@ -6,7 +6,11 @@ convs with 2x max-pool between; with space-to-depth the input arrives packed
 upsamples with 3x3 stride-2 transposed convs, concatenates the encoder skip,
 mixes with a 3x3 conv and ends in a 1x1 bottleneck, stopping at
 ``decode_stride``. Layer names follow the flax modules, so a flax parameter
-tree maps onto the state dict by path (``weights.from_flax``).
+tree maps onto the state dict by path (``weights.from_flax``). With
+``remat`` (``backbone.remat``, the reference's ``nn.remat`` of the encoder
+and of the decoder) each runs under ``torch.utils.checkpoint`` where autograd
+records: only its inputs and outputs stay live for the backward, its inner
+activations are recomputed.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sparse_pooling_tpu_torch.models.layers import Conv, ConvTransposeSame, max_pool
 
@@ -95,15 +100,14 @@ class VggPyramidExtractor(nn.Module):
 
     def __init__(self, in_channels: int, channels: Sequence[int], blocks: Sequence[int],
                  out_channels: int, dtype=torch.bfloat16, decode_stride: int = 1,
-                 space_to_depth: bool = False):
+                 space_to_depth: bool = False, remat: bool = False):
         super().__init__()
         if space_to_depth and decode_stride < 2:
             raise ValueError(
                 "space_to_depth moves the stage-1 features to stride 2, so the "
                 "decoder cannot produce a stride-1 map; use decode_stride >= 2"
             )
-        self.space_to_depth = space_to_depth
-        self.dtype = dtype
+        self.space_to_depth, self.dtype, self.remat = space_to_depth, dtype, remat
         enc_in = 4 * in_channels if space_to_depth else in_channels
         self.encoder = VggEncoder(enc_in, channels, blocks, dtype, space_to_depth)
         self.decoder = PyramidDecoder(channels, out_channels, dtype, stop_stride=decode_stride)
@@ -116,11 +120,16 @@ class VggPyramidExtractor(nn.Module):
             x = space_to_depth(x)
         elif pre_packed and not self.space_to_depth:
             raise ValueError("pre_packed input requires space_to_depth=True")
-        skips = self.encoder(x.to(self.dtype))
+        skips = self._run(self.encoder, x.to(self.dtype))
         return skips[-1], skips[:-1]
 
     def decode(self, mid: torch.Tensor, skips) -> torch.Tensor:
-        return self.decoder(mid, skips)
+        return self._run(self.decoder, mid, skips)
+
+    def _run(self, module: nn.Module, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mid, skips = self.encode(x)

@@ -1,17 +1,24 @@
 """The SHPL fusion detector: two VGG-pyramid branches with SHPL fusion both
-ways, the crop-based RPN with top-k + greedy NMS, the stage-2 head on exact
-7x7 crops, and the decode with per-class BEV NMS.
+ways, the crop-based RPN with top-k + greedy NMS, the stage-2 head, and the
+decode with per-class BEV NMS.
 
 Port of ``sparse_pooling_tpu.models.detector``, eval and train: training
 keeps ``train_nms_size`` proposals, detaches them where
 ``avod.stop_gradient_proposals``, and drops stage-2 FC activations with
 ``avod.keep_dropout_prob`` (a mask drawn from the caller's generator, scaled
-by 1 / keep, as flax's ``nn.Dropout``). Every tensor
-carries a leading batch dim; feature maps are NHWC. Implemented options are
-the ones the cars preset runs (quad-filtered or per-position grouped RPN
-crops on strided maps; exact stage-2 crops; early fusion; box_4c or box_8c;
-the flip head or the angle vector); the others raise
-``NotImplementedError`` and are queued in ROADMAP.md.
+by 1 / keep, as flax's ``nn.Dropout``). Every tensor carries a leading batch
+dim; feature maps are NHWC. Every option of the reference's detector:
+
+* RPN crops: strided (avg-pool to ``rpn.*_roi_stride``, an optional 1x1
+  projection, then kernel C's grouped window crop, one window per filter
+  unit: a position, a QxQ block with ``rpn.roi_quad``, or on the dense grid
+  a GxG block of neighbour positions, ``rpn.bev_roi_group``), or exact at
+  stride 1 (``crop_and_resize_px_batch`` / ``crop_and_resize_batch``);
+* stage-2 crops: exact at stride 1, else one patch window per proposal from
+  the map avg-pooled to ``avod.*_roi_stride``;
+* the stage-2 head's fusion: ``early``, ``late`` or ``deep``, combined by
+  ``mean`` or ``concat``;
+* box_4c or box_8c; the flip head or the angle vector.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from sparse_pooling_tpu_torch.models.layers import Conv, Dense, avg_pool
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import encoders, projection
 from sparse_pooling_tpu_torch.ops.crop_resize import (
+    crop_and_resize_batch,
     crop_and_resize_group_einsum_px,
+    crop_and_resize_patch_einsum_px,
     crop_and_resize_px_batch,
 )
 from sparse_pooling_tpu_torch.ops.nms import nms_batch, top_k_nms_batch
@@ -42,6 +51,13 @@ STAGE2_BOX_DIMS = {"offsets": 6, "box_4c": 10, "box_8c": 24}
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.backbone.compute_dtype == "bfloat16" else torch.float32
+
+
+def largest_group_divisor(nz: int, nx: int, group: int) -> int:
+    """Largest g <= group dividing both dense-grid dims (any divisor: a
+    configured group 4 on a 6x6 grid runs at 3)."""
+
+    return max(d for d in range(1, group + 1) if nz % d == 0 and nx % d == 0)
 
 
 class RpnHead(nn.Module):
@@ -66,34 +82,77 @@ class RpnHead(nn.Module):
 
 
 class Stage2Head(nn.Module):
-    """AVOD second-stage head, early fusion: mean of the view features, one
-    FC stack, then cls / box / orientation (/ flip) in f32."""
+    """AVOD second-stage head: FC stack(s), then cls / box / orientation (/
+    flip) in f32. ``fusion_type`` says where two views fuse: ``early`` (one
+    combine, one FC stack ``fc{i}``), ``late`` (an FC stack per view,
+    ``fc{i}_v{vi}``, combined at the end) or ``deep`` (per-view FCs at every
+    layer, re-combined after each); ``fusion_method`` how: ``mean`` (before
+    the FCs over the kept-branch count, after an FC over the branch count:
+    an FC of a zeroed input is not zero) or ``concat``. One view takes the
+    early stack."""
 
     def __init__(self, in_features: int, fc_layers: Sequence[int], num_classes: int, dtype,
-                 box_dim: int = 10, flip_head: bool = False):
+                 box_dim: int = 10, flip_head: bool = False, fusion_type: str = "early",
+                 fusion_method: str = "mean", n_views: int = 1):
         super().__init__()
+        self.dtype, self.n_fc, self.fusion_method = dtype, len(fc_layers), fusion_method
+        self.fusion_type = fusion_type if n_views > 1 and fusion_type in ("late", "deep") else "early"
+        mult = 2 if n_views > 1 and fusion_method == "concat" else 1
         widths = [in_features, *fc_layers]
-        for i in range(len(fc_layers)):
-            self.add_module(f"fc{i + 1}", Dense(widths[i], widths[i + 1], dtype=dtype))
-        self.n_fc = len(fc_layers)
-        self.cls = Dense(widths[-1], num_classes + 1)
-        self.box_reg = Dense(widths[-1], box_dim)
-        self.orientation = Dense(widths[-1], 2)
+        if self.fusion_type == "early":
+            widths[0] *= mult
+            for i in range(self.n_fc):
+                self.add_module(f"fc{i + 1}", Dense(widths[i], widths[i + 1], dtype=dtype))
+            out = widths[-1]
+        else:
+            for i in range(self.n_fc):
+                cin = widths[i] * (mult if self.fusion_type == "deep" else 1)
+                for vi in range(n_views):
+                    self.add_module(f"fc{i + 1}_v{vi}", Dense(cin, widths[i + 1], dtype=dtype))
+            out = widths[-1] * mult
+        self.cls = Dense(out, num_classes + 1)
+        self.box_reg = Dense(out, box_dim)
+        self.orientation = Dense(out, 2)
         if flip_head:
-            self.flip = Dense(widths[-1], 2)
+            self.flip = Dense(out, 2)
+
+    def _combine(self, views, denom):
+        if len(views) == 1:
+            return views[0]
+        if self.fusion_method == "concat":
+            return torch.cat(views, dim=-1)
+        return sum(views) / denom
 
     def forward(self, roi_views, denom, keep_prob: float = 1.0, generator=None):
         """roi_views: per-view [B, P, S, S, C]; denom [B, 1, 1] kept-branch
         count; ``keep_prob`` < 1 applies dropout after each FC."""
 
         b, p = roi_views[0].shape[:2]
-        views = [v.reshape(b, p, -1) for v in roi_views]
-        x = views[0] if len(views) == 1 else sum(views) / denom
-        for i in range(self.n_fc):
-            x = torch.relu(getattr(self, f"fc{i + 1}")(x))
+        views = [v.reshape(b, p, -1).to(self.dtype) for v in roi_views]
+
+        def fc(name, x):
+            x = torch.relu(getattr(self, name)(x))
             if keep_prob < 1.0:
                 keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
                 x = torch.where(keep, x / keep_prob, 0.0)
+            return x
+
+        n = float(len(views))
+        if self.fusion_type == "late":
+            outs = []
+            for vi, x in enumerate(views):
+                for i in range(self.n_fc):
+                    x = fc(f"fc{i + 1}_v{vi}", x)
+                outs.append(x)
+            x = self._combine(outs, n)
+        elif self.fusion_type == "deep":
+            x = self._combine(views, denom)
+            for i in range(self.n_fc):
+                x = self._combine([fc(f"fc{i + 1}_v{vi}", x) for vi in range(len(views))], n)
+        else:
+            x = self._combine(views, denom)
+            for i in range(self.n_fc):
+                x = fc(f"fc{i + 1}", x)
         flip = self.flip(x) if hasattr(self, "flip") else None
         return self.cls(x), self.box_reg(x), self.orientation(x), flip
 
@@ -108,22 +167,30 @@ def px_scales(cfg: ModelConfig, extents: AreaExtents, device):
             torch.tensor([img_h - 1.0, img_w - 1.0] * 2, device=device))
 
 
-def stage2_rois(bev_feat, img_feat, proposals, p2, cfg: ModelConfig, extents: AreaExtents):
-    """Exact ``avod.roi_size`` crops of both decode-stride maps at the
-    proposals [B, P, 6]: (BEV, image) ROIs [B, P, S, S, C], pixel boxes
-    mapped onto the ``decode_stride`` lattice by cell-centre alignment."""
+def stage2_rois(bev_feat, img_feat, proposals, p2, cfg: ModelConfig, extents: AreaExtents,
+                strides=(1, 1)):
+    """``avod.roi_size`` crops of both decode-stride maps at the proposals
+    [B, P, 6]: (BEV, image) ROIs [B, P, S, S, C]. At a stride of 1 the exact
+    crop, pixel boxes mapped onto the ``decode_stride`` lattice by cell-centre
+    alignment; above, one ``avod.roi_patch`` window per proposal from the map
+    avg-pooled to that stride (``crop_and_resize_patch_einsum_px``)."""
 
     bev_px_scale, img_px_scale = px_scales(cfg, extents, proposals.device)
     ds = cfg.backbone.decode_stride
     s2 = (cfg.avod.roi_size, cfg.avod.roi_size)
 
-    def to_feat(px):
-        return (px - (ds - 1) / 2) / ds
+    def crop(feat, boxes_px, stride):
+        if stride <= 1:
+            return crop_and_resize_px_batch(feat, (boxes_px - (ds - 1) / 2) / ds, s2)
+        k = stride // ds
+        src = avg_pool(feat, k) if k > 1 else feat
+        return crop_and_resize_patch_einsum_px(src, (boxes_px - (stride - 1) / 2) / stride, s2,
+                                               patch=cfg.avod.roi_patch)
 
     prop_bev = projection.project_to_bev(proposals, extents)
     prop_img = projection.project_to_image_space(proposals, p2, (cfg.image.height, cfg.image.width))
-    return (crop_and_resize_px_batch(bev_feat, to_feat(prop_bev * bev_px_scale), s2),
-            crop_and_resize_px_batch(img_feat, to_feat(prop_img * img_px_scale), s2))
+    return (crop(bev_feat, prop_bev * bev_px_scale, strides[0]),
+            crop(img_feat, prop_img * img_px_scale, strides[1]))
 
 
 class SparsePoolingDetector(nn.Module):
@@ -132,14 +199,6 @@ class SparsePoolingDetector(nn.Module):
     def __init__(self, cfg: ModelConfig, extents: AreaExtents = AreaExtents()):
         super().__init__()
         c = cfg
-        if c.rpn.dense_grid:
-            raise NotImplementedError("rpn.dense_grid is not ported yet")
-        if c.rpn.bev_roi_stride < 2 or c.rpn.img_roi_stride < 2:
-            raise NotImplementedError("exact (stride-1) RPN crops are not ported yet")
-        if c.avod.bev_roi_stride > 1 or c.avod.img_roi_stride > 1:
-            raise NotImplementedError("strided stage-2 crops are not ported yet")
-        if c.avod.fusion_type != "early" or c.avod.fusion_method != "mean":
-            raise NotImplementedError("only early mean fusion is ported")
         if c.avod.box_rep not in ("box_4c", "box_8c"):
             raise ValueError(f"unknown box_rep '{c.avod.box_rep}'")
         self.cfg, self.extents = cfg, extents
@@ -147,33 +206,48 @@ class SparsePoolingDetector(nn.Module):
         bb = c.backbone
         self.bev_extractor = VggPyramidExtractor(
             c.bev.num_channels, bb.channels, bb.blocks, bb.out_channels, dt,
-            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
         )
         self.img_extractor = VggPyramidExtractor(
             c.image.channels, bb.channels, bb.blocks, bb.out_channels, dt,
-            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
         )
         mid = bb.channels[-1]
         sp = c.sparse_pool
         self.bev_fusion = SparsePoolFusion(mid, mid, mid, dt, sp.pool_channels, sp.accum_dtype)
         if sp.bev_to_img:
             self.img_fusion = SparsePoolFusion(mid, mid, mid, dt, sp.pool_channels, sp.accum_dtype)
+        # 1x1 projections of the pooled maps before a strided crop (the
+        # make_model check keeps both views at one width)
         roi_c = bb.out_channels
         if c.rpn.roi_channels and bb.out_channels > c.rpn.roi_channels:
-            roi_c = c.rpn.roi_channels  # 1x1 projection of the pooled maps before the crop
-            self.bev_roi_proj = Conv(bb.out_channels, roi_c, 1, dt)
-            self.img_roi_proj = Conv(bb.out_channels, roi_c, 1, dt)
+            for name, stride in (("bev_roi_proj", c.rpn.bev_roi_stride), ("img_roi_proj", c.rpn.img_roi_stride)):
+                if stride > 1:
+                    roi_c = c.rpn.roi_channels
+                    self.add_module(name, Conv(bb.out_channels, roi_c, 1, dt))
+        self.bev_group = 1
+        if c.rpn.dense_grid and c.rpn.bev_roi_stride > 1:
+            nz, nx = anchor_ops.grid_shape(c.anchors, extents)
+            self.bev_group = largest_group_divisor(nz, nx, c.rpn.bev_roi_group)
+            if self.bev_group != c.rpn.bev_roi_group:
+                print(f"[detector] bev_roi_group={c.rpn.bev_roi_group} does not divide the "
+                      f"{nz}x{nx} anchor grid; using largest divisor {self.bev_group}")
         s = c.rpn.proposal_roi_size
         self.rpn_head = RpnHead(s * s * roi_c, c.rpn.fusion_channels, dt)
         s2 = c.avod.roi_size
         self.stage2_head = Stage2Head(
             s2 * s2 * bb.out_channels, c.avod.fc_layers, c.num_classes, dt,
             box_dim=STAGE2_BOX_DIMS[c.avod.box_rep], flip_head=c.avod.explicit_flip_head,
+            fusion_type=c.avod.fusion_type, fusion_method=c.avod.fusion_method, n_views=2,
         )
 
-    def _rpn_rois(self, feat, boxes_px_full, stride, proj, n_var, quad):
+    def _rpn_rois(self, feat, boxes_px_full, stride, proj, n_var, quad, group=1):
         """avg-pool to the ROI stride -> optional 1x1 projection -> grouped
-        window crop (kernel C on the card)."""
+        window crop (kernel C on the card), one window per filter unit; with
+        ``group`` > 1 (the dense grid's BEV view) a GxG block of neighbour
+        positions shares one window, the boxes permuted block-major for the
+        crop and back. Each window grows by the spread of its unit's
+        positions."""
 
         c = self.cfg
         ds = c.backbone.decode_stride
@@ -184,10 +258,18 @@ class SparsePoolingDetector(nn.Module):
             src = proj(src)
         boxes_pooled = (boxes_px_full - (stride - 1) / 2) / stride
         b, a = boxes_pooled.shape[:2]
-        patch = c.rpn.roi_patch
-        if quad > 1:
-            spacing = c.anchors.stride / (c.bev.voxel_size * stride)
-            patch += int(math.ceil((quad - 1) * spacing))
+        spread = max(quad, group) - 1
+        spacing = c.anchors.stride / (c.bev.voxel_size * stride)
+        patch = c.rpn.roi_patch + (int(math.ceil(spread * spacing)) if spread else 0)
+        if group > 1:
+            nz, nx = anchor_ops.grid_shape(c.anchors, self.extents)
+            units = anchor_ops.quad_major(boxes_pooled.reshape(b, nz * nx, n_var, 4), nz, nx, group)
+            rois = crop_and_resize_group_einsum_px(
+                src.contiguous(), units.reshape(b, -1, group * group * n_var, 4).contiguous(),
+                (s, s), patch=patch,
+            )
+            rois = rois.reshape(b, nz // group, nx // group, group, group, n_var, s, s, -1)
+            return rois.permute(0, 1, 3, 2, 4, 5, 6, 7, 8).reshape(b, a, s, s, rois.shape[-1])
         rois = crop_and_resize_group_einsum_px(
             src.contiguous(), boxes_pooled.reshape(b, a // n_var, n_var, 4).contiguous(),
             (s, s), patch=patch,
@@ -232,18 +314,24 @@ class SparsePoolingDetector(nn.Module):
         bev_px_scale, img_px_scale = px_scales(c, ext, anchors.device)
         quad = (
             c.rpn.roi_quad
-            if anchor_ops.quad_supported(c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
+            if not c.rpn.dense_grid and anchor_ops.quad_supported(
+                c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
             else 1
         )
         n_var = len(c.anchors.sizes) * len(c.anchors.rotations) * quad * quad
-        bev_rois = self._rpn_rois(
-            bev_feat, bev_boxes * bev_px_scale, c.rpn.bev_roi_stride,
-            getattr(self, "bev_roi_proj", None), n_var, quad,
-        )
-        img_rois = self._rpn_rois(
-            img_feat, img_boxes * img_px_scale, c.rpn.img_roi_stride,
-            getattr(self, "img_roi_proj", None), n_var, quad,
-        )
+        s = c.rpn.proposal_roi_size
+        # strided: the grouped window crop; stride 1: exact crops, the BEV
+        # view in content pixels, the image view normalised over its map
+        if c.rpn.bev_roi_stride > 1:
+            bev_rois = self._rpn_rois(bev_feat, bev_boxes * bev_px_scale, c.rpn.bev_roi_stride,
+                                      getattr(self, "bev_roi_proj", None), n_var, quad, self.bev_group)
+        else:
+            bev_rois = crop_and_resize_px_batch(bev_feat, bev_boxes * bev_px_scale, (s, s))
+        if c.rpn.img_roi_stride > 1:
+            img_rois = self._rpn_rois(img_feat, img_boxes * img_px_scale, c.rpn.img_roi_stride,
+                                      getattr(self, "img_roi_proj", None), n_var, quad)
+        else:
+            img_rois = crop_and_resize_batch(img_feat, img_boxes, (s, s))
         denom = torch.clamp_min(bev_keep + img_keep, 1.0)[:, None, None, None, None]
         rois = (bev_rois + img_rois.to(bev_rois.dtype)) / denom.to(bev_rois.dtype)
 
@@ -263,7 +351,8 @@ class SparsePoolingDetector(nn.Module):
         if c.avod.stop_gradient_proposals:
             proposals = proposals.detach()
 
-        bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext)
+        bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext,
+                                           (c.avod.bev_roi_stride, c.avod.img_roi_stride))
         cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
             [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
             keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,

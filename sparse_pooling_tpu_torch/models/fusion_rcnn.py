@@ -107,11 +107,11 @@ class FusionRcnn(nn.Module):
         bb = c.backbone
         self.bev_extractor = VggPyramidExtractor(
             c.bev.num_channels, bb.channels, bb.blocks, bb.out_channels, dt,
-            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
         )
         self.img_extractor = VggPyramidExtractor(
             c.image.channels, bb.channels, bb.blocks, bb.out_channels, dt,
-            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
         )
         mid = bb.channels[-1]
         sp = c.sparse_pool

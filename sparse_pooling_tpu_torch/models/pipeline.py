@@ -1,9 +1,11 @@
 """End-to-end pipeline: raw batch -> model outputs -> detections or losses.
 
-Port of ``sparse_pooling_tpu.models.pipeline``: the packed voxelizer, the
-in-graph image resize, the SHPL COO build and the quad anchor filter (the
-dense lattice grid, all valid, for ``architecture="rcnn"``) build the model
-inputs on the device; ``forward_batch_fn`` runs the detector (serving under
+Port of ``sparse_pooling_tpu.models.pipeline``: the voxelizer (packed
+where the backbone packs, else the full raster), the in-graph image resize,
+the SHPL COO build and the anchor set (the quad or the position filter, the
+dense grid's occupancy mask over every anchor with ``rpn.dense_grid``, or
+the dense lattice grid, all valid, for ``architecture="rcnn"``) build the
+model inputs on the device; ``forward_batch_fn`` runs the detector (serving under
 ``no_grad``; ``train=True`` with path drop and dropout drawn from a
 ``torch.Generator``), ``decode_batch`` the final NMS and ``loss_batch`` the
 training losses, each dispatched on the architecture: the AVOD-style
@@ -113,13 +115,17 @@ def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="c
             raise ValueError(
                 f"rpn.{name}={st} must be a multiple of backbone.decode_stride={ds}"
             )
+    if cfg.rpn.roi_channels and ((cfg.rpn.bev_roi_stride > 1) != (cfg.rpn.img_roi_stride > 1)):
+        raise ValueError(
+            f"rpn.roi_channels projects the strided view to {cfg.rpn.roi_channels} channels; "
+            "with only one view strided the RPN mean-fuse would mix mismatched widths — "
+            "stride both views, neither, or set roi_channels=0"
+        )
     if cfg.anchors.max_anchors % (len(cfg.anchors.sizes) * len(cfg.anchors.rotations)):
         raise ValueError(
             f"anchors.max_anchors={cfg.anchors.max_anchors} must be divisible "
             "by the class x rotation variant count"
         )
-    if cfg.backbone.remat:
-        raise NotImplementedError("backbone.remat (activation checkpointing) is not ported yet")
     families = {"avod": SparsePoolingDetector, "rcnn": FusionRcnn}
     if cfg.architecture not in families:
         raise ValueError(f"unknown architecture '{cfg.architecture}'")
@@ -137,11 +143,17 @@ def build_model_inputs_batch(
 
     h, w = cfg.bev.grid_hw(extents)
     hp, _ = cfg.bev.padded_hw(extents)
-    if not (cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0):
-        raise NotImplementedError("only the packed (space-to-depth) voxelizer is ported")
-    bev_input, counts = bev_device.bev_maps_packed_batch(
-        batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-    )
+    # packed where the backbone packs anyway (bit-identical inputs); an odd
+    # lattice with space_to_depth fails in the encoder, as in the reference
+    packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
+    if packed:
+        bev_input, counts = bev_device.bev_maps_packed_batch(
+            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+        )
+    else:
+        bev_input = bev_device.bev_maps_from_points_batch(
+            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+        )
     if cfg.image.device_resize and batch.image_scale is not None:
         image = resize_bilinear_batch(batch.image, batch.image_scale)
     else:
@@ -150,26 +162,40 @@ def build_model_inputs_batch(
         batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
     )
 
+    # occupancy raster: a 0/1 indicator for threshold <= 1 (the tier ranking
+    # sums this raster), raw counts above
+    thr = cfg.anchors.density_threshold
+    if packed:
+        occupancy = bev_device.unpack_s2d_raster(counts if thr > 1 else (counts > 0).to(torch.float32), h)
+    elif thr <= 1:
+        occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
+    else:
+        occupancy = bev_device.bev_counts_from_points(
+            batch.points, batch.points_mask, extents, cfg.bev.voxel_size
+        )
+
     anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
     if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
         anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
                                                    device=anchors_frame.device)
-    elif cfg.rpn.dense_grid or not anchor_ops.quad_supported(
+    elif cfg.rpn.dense_grid:  # every grid anchor, occupancy as a mask
+        fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
+        anchors, valid = anchors_frame, (fp_counts >= thr).reshape(fp_counts.shape[0], -1)
+    elif anchor_ops.quad_supported(
         cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad
     ):
-        raise NotImplementedError("only the quad-block anchor filter is ported")
-    else:
-        # 0/1 indicator for threshold <= 1 (the tier ranking sums this
-        # raster), raw counts above
-        raster = counts if cfg.anchors.density_threshold > 1 else (counts > 0).to(torch.float32)
         anchors, valid = anchor_ops.filter_anchor_quads_grid(
-            anchors_frame, bev_device.unpack_s2d_raster(raster, h), extents, cfg.bev, cfg.anchors,
-            max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad,
-            density_threshold=cfg.anchors.density_threshold,
+            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
+            max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad, density_threshold=thr,
+        )
+    else:
+        anchors, valid = anchor_ops.filter_anchor_positions_grid(
+            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
+            max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
         )
     return {
         "bev_input": bev_input,
-        "bev_pre_packed": True,
+        "bev_pre_packed": packed,
         "image": image,
         "m_bev": m_bev,
         "m_fv": m_fv,

@@ -1,12 +1,14 @@
-"""3D grid anchors and the QxQ-block empty-anchor filter.
+"""3D grid anchors and the empty-anchor filters.
 
-Port of the main-path half of ``sparse_pooling_tpu.ops.anchors``: the anchor
-grid is a host constant (z-major positions, class/rotation variants adjacent
-per position); per frame, every variant's footprint occupancy comes from
-strided slices of the integral image, whole QxQ position blocks are kept,
-and the static cap fills by descending occupancy-count tier
-(``_tiered_first_k``). Plain PyTorch; a hand kernel for the compaction is
-queued in ROADMAP.md.
+Port of ``sparse_pooling_tpu.ops.anchors``: the anchor grid is a host
+constant (z-major positions, class/rotation variants adjacent per position);
+per frame, every variant's footprint occupancy comes from the integral image
+(strided slices where the anchor stride is a whole number of BEV cells,
+``grid_occupancy_counts``; else one gather of its four corners), and the
+filter keeps whole units (a position's variants, ``filter_anchor_positions_grid``,
+or a QxQ block of positions, ``filter_anchor_quads_grid``); the static cap
+fills by descending occupancy-count tier (``_tiered_first_k``). Plain
+PyTorch; a hand kernel for the compaction is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -140,6 +142,50 @@ def _compact_positions(
     return FilteredAnchors(anchors=picked, valid=valid)
 
 
+def filter_anchor_positions_batch(
+    anchors: torch.Tensor,  # [B, N, 8] position-major (generate_anchors_np)
+    occupancy: torch.Tensor,  # [B, H, W]
+    extents: AreaExtents,
+    bev_cfg: BevConfig,
+    max_anchors: int,
+    variants: int,
+    density_threshold: int = 1,
+) -> FilteredAnchors:
+    """Position-granular filter by gathers: each anchor's footprint count
+    from the four integral-image corners of its own box; a position is kept
+    whole (all ``variants``) when any variant holds points, its validity per
+    variant. Any stride/voxel ratio."""
+
+    b, n, _ = anchors.shape
+    if n % variants:
+        raise ValueError(f"anchor count {n} not divisible by variants {variants}")
+    if max_anchors % variants:
+        raise ValueError(f"max_anchors {max_anchors} not divisible by variants {variants}")
+    ii = _integral_image_2d_batch(occupancy.to(torch.float32))
+    h1, w1 = ii.shape[1], ii.shape[2]
+    h, w = h1 - 1, w1 - 1
+    x, z = anchors[..., 0], anchors[..., 2]
+    dim_x, dim_z = anchors[..., 3], anchors[..., 5]
+    vs = bev_cfg.voxel_size
+
+    def edge(v, hi, fn):
+        return torch.clamp(fn(v), 0, hi).to(torch.int64)
+
+    c0 = edge((x - dim_x / 2 - extents.x_min) / vs, w, torch.floor)
+    c1 = edge((x + dim_x / 2 - extents.x_min) / vs, w, torch.ceil)
+    r0 = edge((z - dim_z / 2 - extents.z_min) / vs, h, torch.floor)
+    r1 = edge((z + dim_z / 2 - extents.z_min) / vs, h, torch.ceil)
+    flat = ii.reshape(b * h1 * w1)
+    boff = (torch.arange(b, device=ii.device, dtype=torch.int64) * (h1 * w1))[:, None]
+
+    def take(r, c):
+        return flat[(boff + r * w1 + c).reshape(-1)].reshape(b, n)
+
+    counts = take(r1, c1) - take(r0, c1) - take(r1, c0) + take(r0, c0)
+    return _compact_positions(anchors, counts.reshape(b, n // variants, variants), max_anchors,
+                              density_threshold)
+
+
 def grid_occupancy_counts(
     occupancy: torch.Tensor,  # [B, H, W]
     extents: AreaExtents,
@@ -191,6 +237,35 @@ def grid_occupancy_counts(
         [sl(r1, c1) - sl(r0, c1) - sl(r1, c0) + sl(r0, c0) for (r0, r1, c0, c1) in offs],
         dim=-1,
     ).reshape(b, nz * nx, len(offs))
+
+
+def filter_anchor_positions_grid(
+    anchors: torch.Tensor,  # [B, N, 8] the z-major static grid + per-frame y
+    occupancy: torch.Tensor,  # [B, H, W]
+    extents: AreaExtents,
+    bev_cfg: BevConfig,
+    anchor_cfg: AnchorConfig,
+    max_anchors: int,
+    density_threshold: int = 1,
+) -> FilteredAnchors:
+    """Position-granular filter with the occupancy query as strided slices
+    (``grid_occupancy_counts``); ``filter_anchor_positions_batch`` (gathers)
+    where the anchor stride is not a whole number of BEV cells."""
+
+    variants = len(anchor_cfg.sizes) * len(anchor_cfg.rotations)
+    s_cells = anchor_cfg.stride / bev_cfg.voxel_size
+    if abs(s_cells - round(s_cells)) > 1e-6:
+        return filter_anchor_positions_batch(
+            anchors, occupancy, extents, bev_cfg, max_anchors=max_anchors, variants=variants,
+            density_threshold=density_threshold,
+        )
+    counts = grid_occupancy_counts(occupancy, extents, bev_cfg, anchor_cfg)
+    if anchors.shape[1] != counts.shape[1] * variants:
+        raise ValueError(
+            f"anchors [{anchors.shape[1]}] do not tile the grid of "
+            f"{counts.shape[1]} positions with {variants} variants"
+        )
+    return _compact_positions(anchors, counts, max_anchors, density_threshold)
 
 
 def quad_supported(

@@ -1,5 +1,5 @@
-"""Bilinear crop-and-resize (TF semantics): the grouped RPN crop (kernel C)
-and the exact stage-2 crop, each with its feature gradient.
+"""Bilinear crop-and-resize (TF semantics): the grouped RPN crop (kernel C),
+the exact crop and the strided patch crop, each with its gradients.
 
 Port of ``sparse_pooling_tpu.ops.crop_resize``:
 
@@ -9,19 +9,25 @@ Port of ``sparse_pooling_tpu.ops.crop_resize``:
   (``csrc/group_crop.cu``, several units per block, one thread per sample
   holding all C channels); a CPU tensor runs ``crop_and_resize_group_plain``,
   which keeps the reference's casts of the tent weights and of each product
-  to the feature dtype. Its gradient (the reference's ``_group_with_vjp``)
-  is the window transpose: kernel C-bwd in the same file on the card,
-  ``crop_and_resize_group_bwd_plain`` on the CPU.
-* ``crop_and_resize_px_batch`` — exact bilinear sampling at every grid point,
-  2x2 window per sample with starts clamped to (h-2, w-2); the interpolation
-  fractions are cast to the feature dtype as in the reference. Plain PyTorch
-  both ways (the backward mirrors ``_crop_with_vjp``: f32 corner weights,
-  one ``index_add_`` in the reference's accumulator dtype, and where the
-  boxes need it their gradient, ``_box_grad_from_corners``); hand kernels
-  are queued in ROADMAP.md.
+  to the feature dtype. Its image gradient (the reference's
+  ``_group_with_vjp``) is the window transpose: kernel C-bwd in the same file
+  on the card, ``crop_and_resize_group_bwd_plain`` on the CPU; its box
+  gradient is the reference's ``_box_grad`` at the window-clamped sample
+  coordinates (``_group_coords``), plain PyTorch on both devices.
+* ``crop_and_resize_px_batch`` (and ``crop_and_resize_batch``, its form for
+  boxes normalized over the map) — exact bilinear sampling at every grid
+  point, 2x2 window per sample with starts clamped to (h-2, w-2); the
+  interpolation fractions are cast to the feature dtype as in the reference.
+* ``crop_and_resize_patch_einsum_px`` — the strided stage-2 crop: one
+  [patch, patch] window per box, the grouped crop's plain evaluation with
+  one box a unit.
 
-The grouped crop's boxes take no gradient: boxes that require one raise (its
-boxes are the RPN's anchors; the box gradient is queued).
+The exact and the patch crop are plain PyTorch both ways. Each equals
+bilinear sampling at coordinates of its boxes, so both share the reference's
+``_bilinear_bwd`` (``_Bilinear``): f32 corner weights, one ``index_add_``
+in the reference's accumulator dtype for the image, and where the boxes need
+it their gradient (``bilinear_box_grad``, the reference's
+``_box_grad_from_corners``); hand kernels are queued in ROADMAP.md.
 
 Boxes are [y1, x1, y2, x2] in pixel coordinates of the source map; sample
 grid y = y1 + i * (y2 - y1) / (ch - 1) (crop size 1 samples the centre),
@@ -64,9 +70,22 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
-def _no_box_grad(boxes: torch.Tensor, what: str) -> None:
-    if boxes.requires_grad:
-        raise NotImplementedError(f"{what}: the gradient of the boxes is not ported yet")
+def _corner_geometry(ys: torch.Tensor, xs: torch.Tensor, h: int, w: int):
+    """Sample coords ys [B, N, ch], xs [B, N, cw] -> the 2x2 windows' corner
+    rows and columns [B, N, ch, cw] (top-left start clamped to (h-2, w-2),
+    the far corner to the map) and the f32 fractions dy [B, N, ch, 1, 1],
+    dx [B, N, 1, cw, 1]."""
+
+    b, n, ch = ys.shape
+    cw = xs.shape[-1]
+    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, max(h - 2, 0))
+    x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, max(w - 2, 0))
+    dy = (ys - y0).to(torch.float32)[:, :, :, None, None]
+    dx = (xs - x0).to(torch.float32)[:, :, None, :, None]
+    yg = y0[:, :, :, None].expand(b, n, ch, cw)
+    xg = x0[:, :, None, :].expand(b, n, ch, cw)
+    y1g, x1g = torch.clamp_max(yg + 1, h - 1), torch.clamp_max(xg + 1, w - 1)
+    return (yg, xg, y1g, x1g), dy, dx
 
 
 def _crop_px_forward(images: torch.Tensor, boxes_px: torch.Tensor, crop_hw) -> torch.Tensor:
@@ -76,50 +95,37 @@ def _crop_px_forward(images: torch.Tensor, boxes_px: torch.Tensor, crop_hw) -> t
     ch, cw = int(crop_hw[0]), int(crop_hw[1])
     n = boxes_px.shape[1]
     ys, xs = _sample_grid(boxes_px, h, w, (ch, cw))
-    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, max(h - 2, 0))
-    x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, max(w - 2, 0))
-    dy = (ys - y0).to(images.dtype)[:, :, :, None, None]  # [B, N, ch, 1, 1]
-    dx = (xs - x0).to(images.dtype)[:, :, None, :, None]  # [B, N, 1, cw, 1]
-    y1 = y0 + (1 if h > 1 else 0)
-    x1 = x0 + (1 if w > 1 else 0)
-
+    (y0, x0, y1, x1), dy, dx = _corner_geometry(ys, xs, h, w)
+    dy, dx = dy.to(images.dtype), dx.to(images.dtype)
     flat = images.reshape(b * h * w, c)
     base = (torch.arange(b, device=images.device) * (h * w))[:, None, None, None]
 
     def corner(yy, xx):
-        lin = base + yy[:, :, :, None] * w + xx[:, :, None, :]  # [B, N, ch, cw]
-        return flat[lin.reshape(-1)].reshape(b, n, ch, cw, c)
+        return flat[(base + yy * w + xx).reshape(-1)].reshape(b, n, ch, cw, c)
 
     top = corner(y0, x0) * (1 - dx) + corner(y0, x1) * dx
     bot = corner(y1, x0) * (1 - dx) + corner(y1, x1) * dx
     return top * (1 - dy) + bot * dy
 
 
-def crop_and_resize_px_bwd_plain(grad: torch.Tensor, boxes_px: torch.Tensor, image_shape,
-                                 dtype: torch.dtype) -> torch.Tensor:
-    """Feature gradient of ``crop_and_resize_px_batch``, the reference's
-    ``_bilinear_bwd``: each sample's f32 gradient times its four f32 corner
-    weights, one ``index_add_`` into [B*H*W, C] in the reference's
-    accumulator (``acc_dtype``), cast to ``dtype``."""
+def bilinear_feature_grad(grad: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, image_shape,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Image gradient of bilinear sampling at ys [B, N, ch], xs [B, N, cw],
+    the feature half of the reference's ``_bilinear_bwd``: each sample's f32
+    gradient [B, N, ch, cw, C] times its four f32 corner weights, one
+    ``index_add_`` into [B*H*W, C] in the reference's accumulator
+    (``acc_dtype``), cast to ``dtype``."""
 
     b, h, w, c = image_shape
-    ch, cw = grad.shape[2], grad.shape[3]
-    n = boxes_px.shape[1]
     acc = acc_dtype(dtype)
-    g = grad.to(torch.float32)  # [B, N, ch, cw, C]
-    ys, xs = _sample_grid(boxes_px, h, w, (ch, cw))
-    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, max(h - 2, 0))
-    x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, max(w - 2, 0))
-    dy = (ys - y0)[:, :, :, None, None]
-    dx = (xs - x0)[:, :, None, :, None]
-    yg = y0[:, :, :, None].expand(b, n, ch, cw)
-    xg = x0[:, :, None, :].expand(b, n, ch, cw)
-    y1g, x1g = torch.clamp_max(yg + 1, h - 1), torch.clamp_max(xg + 1, w - 1)
+    g = grad.to(torch.float32)
+    corners, dy, dx = _corner_geometry(ys, xs, h, w)
+    yg, xg, y1g, x1g = corners
     base = (torch.arange(b, device=g.device) * (h * w))[:, None, None, None]
     # entries frame by frame, the four corners' blocks in turn, as the
     # reference orders them (the order of a bf16 sum matters)
-    corners = ((yg, xg), (yg, x1g), (y1g, xg), (y1g, x1g))
-    ids = torch.stack([(base + yy * w + xx).reshape(b, -1) for yy, xx in corners], dim=1)
+    blocks = ((yg, xg), (yg, x1g), (y1g, xg), (y1g, x1g))
+    ids = torch.stack([(base + yy * w + xx).reshape(b, -1) for yy, xx in blocks], dim=1)
     weights = ((1 - dy) * (1 - dx), (1 - dy) * dx, dy * (1 - dx), dy * dx)
     vals = torch.stack([(g * wt).reshape(b, -1, c) for wt in weights], dim=1)
     out = torch.zeros(b * h * w, c, dtype=acc, device=g.device)
@@ -127,64 +133,77 @@ def crop_and_resize_px_bwd_plain(grad: torch.Tensor, boxes_px: torch.Tensor, ima
     return out.reshape(b, h, w, c).to(dtype)
 
 
-def crop_and_resize_px_box_grad(grad: torch.Tensor, images: torch.Tensor,
-                                boxes_px: torch.Tensor) -> torch.Tensor:
-    """Box gradient [B, N, 4] of ``crop_and_resize_px_batch``, the
-    reference's ``_box_grad_from_corners``: the f32 corner values re-gathered,
-    the bilinear blend chained analytically to each sample's fractions, then
-    through the (clipped) sample grid to the boxes."""
+def bilinear_box_grad(grad: torch.Tensor, images: torch.Tensor, boxes: torch.Tensor,
+                      coords_fn) -> torch.Tensor:
+    """Box gradient of bilinear sampling at ``coords_fn(boxes)`` (ys
+    [B, N, ch], xs [B, N, cw]), the reference's ``_box_grad_from_corners``:
+    the f32 corner values re-gathered, the bilinear blend chained
+    analytically to each sample's fractions, then through ``coords_fn`` (its
+    clips included) to the boxes."""
 
     b, h, w, c = images.shape
-    ch, cw = grad.shape[2], grad.shape[3]
-    n = boxes_px.shape[1]
     g = grad.to(torch.float32)
     with torch.enable_grad():
-        boxes = boxes_px.detach().requires_grad_(True)
-        ys, xs = _sample_grid(boxes, h, w, (ch, cw))
-    y0 = torch.clamp(torch.floor(ys.detach()).to(torch.int64), 0, max(h - 2, 0))
-    x0 = torch.clamp(torch.floor(xs.detach()).to(torch.int64), 0, max(w - 2, 0))
-    dy = (ys.detach() - y0)[:, :, :, None, None]
-    dx = (xs.detach() - x0)[:, :, None, :, None]
+        leaf = boxes.detach().requires_grad_(True)
+        ys, xs = coords_fn(leaf)
+    n, ch, cw = ys.shape[1], ys.shape[2], xs.shape[2]
+    (y0, x0, y1, x1), dy, dx = _corner_geometry(ys.detach(), xs.detach(), h, w)
     flat = images.detach().reshape(b * h * w, c).to(torch.float32)
     base = (torch.arange(b, device=g.device) * (h * w))[:, None, None, None]
 
     def corner(yy, xx):
-        lin = base + yy[:, :, :, None] * w + xx[:, :, None, :]
-        return flat[lin.reshape(-1)].reshape(b, n, ch, cw, c)
+        return flat[(base + yy * w + xx).reshape(-1)].reshape(b, n, ch, cw, c)
 
-    y1, x1 = torch.clamp_max(y0 + 1, h - 1), torch.clamp_max(x0 + 1, w - 1)
     p00, p01, p10, p11 = corner(y0, x0), corner(y0, x1), corner(y1, x0), corner(y1, x1)
     top = p00 * (1 - dx) + p01 * dx
     bot = p10 * (1 - dx) + p11 * dx
     g_dy = torch.sum(g * (bot - top), dim=(3, 4))  # [B, N, ch]
     g_dx = torch.sum(g * ((p01 - p00) * (1 - dy) + (p11 - p10) * dy), dim=(2, 4))  # [B, N, cw]
-    (g_boxes,) = torch.autograd.grad((ys, xs), boxes, (g_dy, g_dx))
+    (g_boxes,) = torch.autograd.grad((ys, xs), leaf, (g_dy, g_dx))
     return g_boxes
 
 
-class _CropPx(torch.autograd.Function):
+class _Bilinear(torch.autograd.Function):
+    """A crop that equals bilinear sampling at ``coords_fn(boxes)``:
+    ``forward_fn(images, boxes)`` forward, the reference's ``_bilinear_bwd``
+    backward (``bilinear_feature_grad`` and, where the boxes require it,
+    ``bilinear_box_grad``)."""
+
     @staticmethod
-    def forward(ctx, images, boxes_px, crop_hw):
-        ctx.save_for_backward(images if boxes_px.requires_grad else None, boxes_px)
-        ctx.image_shape, ctx.dtype = tuple(images.shape), images.dtype
-        return _crop_px_forward(images, boxes_px, crop_hw)
+    def forward(ctx, images, boxes, forward_fn, coords_fn):
+        ctx.save_for_backward(images if boxes.requires_grad else None, boxes)
+        ctx.image_shape, ctx.dtype, ctx.coords_fn = tuple(images.shape), images.dtype, coords_fn
+        return forward_fn(images, boxes)
 
     @staticmethod
     def backward(ctx, grad):
-        images, boxes_px = ctx.saved_tensors
+        images, boxes = ctx.saved_tensors
         g_images = g_boxes = None
         if ctx.needs_input_grad[0]:
-            g_images = crop_and_resize_px_bwd_plain(grad, boxes_px, ctx.image_shape, ctx.dtype)
+            ys, xs = ctx.coords_fn(boxes)
+            g_images = bilinear_feature_grad(grad, ys, xs, ctx.image_shape, ctx.dtype)
         if ctx.needs_input_grad[1]:
-            g_boxes = crop_and_resize_px_box_grad(grad, images, boxes_px)
-        return g_images, g_boxes, None
+            g_boxes = bilinear_box_grad(grad, images, boxes, ctx.coords_fn)
+        return g_images, g_boxes, None, None
 
 
 def crop_and_resize_px_batch(images: torch.Tensor, boxes_px: torch.Tensor, crop_hw) -> torch.Tensor:
     """[B, H, W, C] + [B, N, 4] pixel boxes -> [B, N, ch, cw, C]; the
     gradient reaches the images and, where they require it, the boxes."""
 
-    return _CropPx.apply(images, boxes_px, (int(crop_hw[0]), int(crop_hw[1])))
+    _, h, w, _ = images.shape
+    hw = (int(crop_hw[0]), int(crop_hw[1]))
+    return _Bilinear.apply(images, boxes_px, lambda im, bx: _crop_px_forward(im, bx, hw),
+                           lambda bx: _sample_grid(bx, h, w, hw))
+
+
+def crop_and_resize_batch(images: torch.Tensor, boxes: torch.Tensor, crop_hw) -> torch.Tensor:
+    """``crop_and_resize_px_batch`` of boxes normalized TF-style over the
+    map's own (H - 1, W - 1) -> [B, N, ch, cw, C]."""
+
+    _, h, w, _ = images.shape
+    scale = torch.tensor([h - 1.0, w - 1.0, h - 1.0, w - 1.0], dtype=boxes.dtype, device=boxes.device)
+    return crop_and_resize_px_batch(images, boxes * scale, crop_hw)
 
 
 def _group_starts(boxes_grouped: torch.Tensor, h: int, w: int, crop_hw, patch: int):
@@ -198,6 +217,19 @@ def _group_starts(boxes_grouped: torch.Tensor, h: int, w: int, crop_hw, patch: i
     y_start = torch.clamp(torch.floor(y_mid - (patch - 2) / 2).to(torch.int64), 0, max(h - patch, 0))
     x_start = torch.clamp(torch.floor(x_mid - (patch - 2) / 2).to(torch.int64), 0, max(w - patch, 0))
     return ys, xs, y_start, x_start
+
+
+def _group_coords(boxes_grouped: torch.Tensor, h: int, w: int, crop_hw, patch: int):
+    """The grouped crop's effective (window-clamped) sample coordinates,
+    flattened to ys [B, P*V, ch], xs [B, P*V, cw]: the crop equals bilinear
+    sampling there."""
+
+    b, p, v, _ = boxes_grouped.shape
+    ys, xs, y_start, x_start = _group_starts(boxes_grouped, h, w, crop_hw, patch)
+    py, px = min(patch, h), min(patch, w)
+    ys_eff = y_start[..., None, None] + torch.clamp(ys - y_start[..., None, None], 0.0, py - 1.0)
+    xs_eff = x_start[..., None, None] + torch.clamp(xs - x_start[..., None, None], 0.0, px - 1.0)
+    return ys_eff.reshape(b, p * v, -1), xs_eff.reshape(b, p * v, -1)
 
 
 def _tent_weights(boxes_grouped: torch.Tensor, h: int, w: int, crop_hw, patch: int):
@@ -314,11 +346,13 @@ def crop_and_resize_group_bwd_kernel(grad: torch.Tensor, boxes_grouped: torch.Te
 
 class _GroupCrop(torch.autograd.Function):
     """Kernel C (or its twin) forward; C-bwd (or its twin, f32 sums) for the
-    images' gradient. Saves the boxes, not the images."""
+    images' gradient, ``bilinear_box_grad`` at ``_group_coords`` for the
+    boxes'. Saves the boxes, and the images only where the boxes require a
+    gradient."""
 
     @staticmethod
     def forward(ctx, images, boxes_grouped, crop_hw, patch):
-        ctx.save_for_backward(boxes_grouped)
+        ctx.save_for_backward(images if boxes_grouped.requires_grad else None, boxes_grouped)
         ctx.image_shape, ctx.dtype, ctx.crop_hw, ctx.patch = (
             tuple(images.shape), images.dtype, crop_hw, patch)
         fn = crop_and_resize_group_kernel if images.is_cuda else crop_and_resize_group_plain
@@ -326,10 +360,20 @@ class _GroupCrop(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        (boxes,) = ctx.saved_tensors
-        fn = crop_and_resize_group_bwd_kernel if grad.is_cuda else crop_and_resize_group_bwd_plain
-        g = fn(grad.contiguous(), boxes, ctx.image_shape, ctx.crop_hw, ctx.patch, ctx.dtype)
-        return g, None, None, None
+        images, boxes = ctx.saved_tensors
+        g_images = g_boxes = None
+        if ctx.needs_input_grad[0]:
+            fn = crop_and_resize_group_bwd_kernel if grad.is_cuda else crop_and_resize_group_bwd_plain
+            g_images = fn(grad.contiguous(), boxes, ctx.image_shape, ctx.crop_hw, ctx.patch, ctx.dtype)
+        if ctx.needs_input_grad[1]:
+            b, p, v, _ = boxes.shape
+            _, h, w, c = ctx.image_shape
+            ch, cw = ctx.crop_hw
+            g_boxes = bilinear_box_grad(
+                grad.reshape(b, p * v, ch, cw, c), images, boxes.reshape(b, p * v, 4),
+                lambda bx: _group_coords(bx.reshape(b, p, v, 4), h, w, ctx.crop_hw, ctx.patch),
+            ).reshape(b, p, v, 4)
+        return g_images, g_boxes, None, None
 
 
 def crop_and_resize_group_einsum_px(
@@ -337,8 +381,25 @@ def crop_and_resize_group_einsum_px(
 ) -> torch.Tensor:
     """Group-shared window crop: one [patch, patch, C] window per unit of V
     boxes -> [B, P, V, ch, cw, C]. Kernel C on a CUDA tensor, the plain
-    version on a CPU tensor; the gradient reaches the images only (C-bwd, or
-    its twin)."""
+    version on a CPU tensor; the gradient reaches the images (C-bwd, or its
+    twin) and, where they require it, the boxes."""
 
-    _no_box_grad(boxes_grouped, "crop_and_resize_group_einsum_px")
     return _GroupCrop.apply(images, boxes_grouped, (int(crop_hw[0]), int(crop_hw[1])), int(patch))
+
+
+def crop_and_resize_patch_einsum_px(images: torch.Tensor, boxes_px: torch.Tensor, crop_hw,
+                                    patch: int = 8) -> torch.Tensor:
+    """Patch crop: one [patch, patch, C] window per box [B, N, 4] (centred on
+    its sample span, clipped to the map) -> [B, N, ch, cw, C], exact bilinear
+    while a box spans at most patch - 2 cells. Plain PyTorch on both devices
+    (``crop_and_resize_group_plain`` with one box a unit); its backward is
+    ``_bilinear_bwd`` at the window-clamped coordinates, as the reference's
+    ``_patch_with_vjp``."""
+
+    _, h, w, _ = images.shape
+    hw, patch = (int(crop_hw[0]), int(crop_hw[1])), int(patch)
+    return _Bilinear.apply(
+        images, boxes_px,
+        lambda im, bx: crop_and_resize_group_plain(im, bx[:, :, None], hw, patch)[:, :, 0],
+        lambda bx: _group_coords(bx[:, :, None], h, w, hw, patch),
+    )

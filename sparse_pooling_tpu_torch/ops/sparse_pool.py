@@ -13,8 +13,9 @@ Port of ``sparse_pooling_tpu.ops.sparse_pool``:
   scattering per point) and the backward kernel A-bwd (the same file: the
   points' corners sorted by source cell, then a gather by cell); on a CPU
   tensor they run ``sparse_pool_patch_plain`` and
-  ``sparse_pool_patch_bwd_plain``. Only the source map takes a gradient:
-  the COO comes from the points, not from parameters.
+  ``sparse_pool_patch_bwd_plain``. Where the weights require it, their
+  gradient is ``sparse_pool_patch_vals_grad`` (the reference's ``g_vals``),
+  plain PyTorch on both devices.
 * ``sparse_pool_ell_batch_plain`` — the plain ELL pool of a batch,
   ``out[b, t] = sum_k w[b,t,k] * src[b, idx[b,t,k]]``, twin of kernel B
   (``ops/ell_sparse_pool.py``, whose ``sparse_pool_ell_batch`` dispatches on
@@ -238,24 +239,59 @@ def sparse_pool_patch_bwd_kernel(
     return g_src
 
 
+def sparse_pool_patch_vals_grad(
+    grad_out: torch.Tensor,  # [B, T, C] gradient of the pooled output
+    src_map: torch.Tensor,  # [B, Hs, Ws, C]
+    rows: torch.Tensor,  # [B, P] int32
+    cols: torch.Tensor,  # [B, P, 4] int32
+    out: torch.Tensor,  # [B, T, C] f32 the pooled output
+    den=None,  # [B, T] f32 weight sums of the forward, or None (no division)
+) -> torch.Tensor:
+    """Gradient of the weights [B, P, 4] f32, the reference's ``g_vals``:
+    the corner values re-gathered in f32, contracted over the channels with
+    the gradient of their row's undivided sum; in the division form plus the
+    row's weight-sum gradient, -sum_c(g * out) / den where den > 1e-12."""
+
+    b, t, c = grad_out.shape
+    dev = grad_out.device
+    g = grad_out.to(torch.float32)
+    rid = (rows.to(torch.int64) + (torch.arange(b, device=dev) * t)[:, None]).reshape(-1)
+    row_ok = ((rid >= 0) & (rid < b * t))[:, None]
+    rid = torch.clamp(rid, 0, b * t - 1)
+    gp = torch.where(row_ok, _bwd_row_grad(g, den).reshape(b * t, c)[rid], 0.0)
+    patches = _gather_point_patches(src_map, cols).to(torch.float32)  # [B, P, 4, C]
+    g_vals = torch.sum(patches * gp.reshape(b, -1, 1, c), dim=-1)
+    if den is not None:
+        g_den = torch.where(den > 1e-12, -torch.sum(g * out, dim=-1) / torch.clamp_min(den, 1e-12), 0.0)
+        g_vals = g_vals + torch.where(row_ok, g_den.reshape(-1)[rid][:, None], 0.0).reshape(b, -1, 1)
+    return g_vals
+
+
 class _PatchPool(torch.autograd.Function):
     """Kernel A (or its twin) forward; A-bwd (or its twin) for the source
-    map's gradient. Saves the COO and the weight sums, not the map."""
+    map's gradient, ``sparse_pool_patch_vals_grad`` for the weights'. Saves
+    the COO and the weight sums, and the map and the output only where the
+    weights require a gradient."""
 
     @staticmethod
     def forward(ctx, src_map, rows, cols, vals, num_targets, divide, accum_dtype):
         fn = sparse_pool_patch_kernel if src_map.is_cuda else sparse_pool_patch_plain
         out, den = fn(src_map, rows, cols, vals, num_targets, divide, accum_dtype)
-        ctx.save_for_backward(rows, cols, vals, den)
+        keep = vals.requires_grad
+        ctx.save_for_backward(rows, cols, vals, den, src_map if keep else None, out if keep else None)
         ctx.src_hw, ctx.src_dtype = tuple(src_map.shape[1:3]), src_map.dtype
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        rows, cols, vals, den = ctx.saved_tensors
-        fn = sparse_pool_patch_bwd_kernel if grad_out.is_cuda else sparse_pool_patch_bwd_plain
-        g_src = fn(grad_out.contiguous(), rows, cols, vals, ctx.src_hw, den, ctx.src_dtype)
-        return g_src, None, None, None, None, None, None
+        rows, cols, vals, den, src_map, out = ctx.saved_tensors
+        g_src = g_vals = None
+        if ctx.needs_input_grad[0]:
+            fn = sparse_pool_patch_bwd_kernel if grad_out.is_cuda else sparse_pool_patch_bwd_plain
+            g_src = fn(grad_out.contiguous(), rows, cols, vals, ctx.src_hw, den, ctx.src_dtype)
+        if ctx.needs_input_grad[3]:
+            g_vals = sparse_pool_patch_vals_grad(grad_out, src_map, rows, cols, out, den).to(vals.dtype)
+        return g_src, None, None, g_vals, None, None, None
 
 
 def sparse_pool_patch_major_batch(
@@ -269,13 +305,9 @@ def sparse_pool_patch_major_batch(
 ) -> torch.Tensor:
     """Point-major pooling with one 2x2 window per point -> [B, T, C] f32.
     Kernel A on a CUDA tensor, the plain version on a CPU tensor; the
-    gradient reaches ``src_map`` only (A-bwd, or its twin)."""
+    gradient reaches ``src_map`` (A-bwd, or its twin) and, where they require
+    it, ``vals``."""
 
-    if vals.requires_grad:
-        raise NotImplementedError(
-            "sparse_pool_patch_major_batch: the gradient of vals is not ported (the COO "
-            "comes from the points, not from parameters)"
-        )
     return _PatchPool.apply(src_map, rows, cols, vals, int(num_targets), divide_by_weight_sum,
                             accum_dtype)
 

@@ -3,7 +3,11 @@
 ``from_flax`` maps the JAX package's parameter tree (nested dicts of numpy
 arrays, e.g. ``jax.tree.map(np.asarray, params)``) of either detector family
 (``SparsePoolingDetector`` or ``FusionRcnn``) onto the port's state dict;
-module paths match by name. It never imports flax. Conversions:
+module paths match by name, so whatever layers a configuration builds map
+across (the late and deep stage-2 layers ``fc{i}_v{vi}`` at their widths; no
+``bev_roi_proj`` / ``img_roi_proj`` where the RPN crops are stride 1; the
+encoder and decoder under ``backbone.remat``, which keeps their names). It
+never imports flax. Conversions:
   * conv kernels HWIO -> OIHW (the rcnn RPN's 1x1 [1, 1, C, 2R] -> [2R, C, 1, 1]);
   * dense kernels (in, out) -> (out, in); ROI features are flattened in
     NHWC (S, S, C) order on both sides, so fc1 needs no permutation;

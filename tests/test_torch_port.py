@@ -176,12 +176,26 @@ def test_cpu_backward_takes_the_plain_twins_and_launches_nothing():
 
 
 def test_gradients_of_the_coo_and_the_boxes_raise():
+    """They no longer raise: kernel A's weights and the grouped crop's boxes
+    take their gradients, equal to the plain forms the backwards call (the
+    weights' against ``jax.vjp`` in ``tests/test_torch_options.py``)."""
+
     src, rows, cols, vals = _small_inputs()
-    with pytest.raises(NotImplementedError, match="vals"):
-        sparse_pool.sparse_pool_patch_major_batch(src, rows, cols, vals.requires_grad_(True), 11, True)
-    boxes = (torch.rand(2, 3, 4, 4) * 5).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="boxes"):
-        crop_resize.crop_and_resize_group_einsum_px(src, boxes, (3, 3), 4)
+    v = vals.clone().requires_grad_(True)
+    g = torch.randn(2, 11, 4, generator=torch.Generator().manual_seed(3))
+    out = sparse_pool.sparse_pool_patch_major_batch(src, rows, cols, v, 11, True)
+    out.backward(g)
+    _, den = sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, 11, True)
+    want = sparse_pool.sparse_pool_patch_vals_grad(g, src, rows, cols, out.detach(), den)
+    assert torch.equal(v.grad, want) and v.grad.abs().max() > 0
+    boxes = (torch.rand(2, 3, 4, 4, generator=torch.Generator().manual_seed(4)) * 5).requires_grad_(True)
+    gc = torch.randn(2, 3, 4, 3, 3, 4, generator=torch.Generator().manual_seed(5))
+    crop_resize.crop_and_resize_group_einsum_px(src, boxes, (3, 3), 4).backward(gc)
+    want = crop_resize.bilinear_box_grad(
+        gc.reshape(2, 12, 3, 3, 4), src, boxes.detach().reshape(2, 12, 4),
+        lambda bx: crop_resize._group_coords(bx.reshape(2, 3, 4, 4), 5, 7, (3, 3), 4),
+    ).reshape(2, 3, 4, 4)
+    assert torch.equal(boxes.grad, want) and boxes.grad.abs().max() > 0
 
 
 def test_exact_crop_boxes_take_a_gradient():

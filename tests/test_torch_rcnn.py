@@ -297,16 +297,15 @@ def test_corner_reps_need_the_ground_plane():
 
 
 def test_unported_options_still_raise():
+    """What the JAX package rejects, the port rejects with the same type
+    (remat and the dense grid run now: tests/test_torch_options_*.py)."""
+
     cfg = rcnn_parity_config()
-    with pytest.raises(NotImplementedError, match="remat"):
-        t_pl.make_model(r(cfg, backbone=r(cfg.backbone, remat=True)), T_EXT, device="cpu")
     with pytest.raises(ValueError, match="architecture"):
         t_pl.make_model(r(cfg, architecture="mv3d"), T_EXT, device="cpu")
     avod = cars_pyramid_config().model
     with pytest.raises(ValueError, match="box_rep"):  # offsets are the rcnn family's, as in JAX
         t_pl.make_model(r(avod, avod=r(avod.avod, box_rep="offsets")), T_EXT, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense_grid"):
-        t_pl.make_model(r(avod, rpn=r(avod.rpn, dense_grid=True)), T_EXT, device="cpu")
 
 
 # ---------------------------------------------------------------- box_8c
