@@ -118,7 +118,37 @@ non-zero):
    Each path prints its launches, latency or step time, busy share (a
    profiled request or step) and peak memory; one ``[model options P1-P5]``
    JSON line holds them;
-19. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+19. ``parallel/``: first ``parallel/dryrun.py``'s ``dryrun_multichip(4)``
+   (4 CPU ranks over gloo, data 2 x model 2, the production ``Trainer``
+   for 2 steps against one process, losses at rtol 1e-5); then on the one
+   card: (a) ``run_training --multihost`` as a
+   subprocess, a world of 1 over NCCL (torchrun's environment set by the
+   script) on phase 8's tree for 2 steps: ``process_info``, an NCCL
+   all-reduce of a CUDA tensor, no mesh at one rank, finite losses, the
+   checkpoint; (b) two data ranks sharing the card over gloo (NCCL refuses
+   two ranks on one device), the cars preset at full width with kernel A's
+   bf16 accumulation under deterministic algorithms, phase 6's frames, a
+   global batch of 8 (4 a rank), against one process at batch 8: step 1
+   from the same seeded init (its total within 2^-6 relative, its
+   gradients within 2^-6 in relative L2 over the model, each tensor's
+   largest gap printed), then step 2 from one
+   process's step-1 checkpoint, which the mesh slices (its total within
+   2^-6 relative, every weight after it within 2^-6 of its tensor's
+   largest, and each tensor's step-2 update, biases included, within 2^-4
+   in relative L2 of one process's; the biases, 0 at init, also print
+   their gap in units of lr); A, C, A-bwd and C-bwd twice a step in each rank, each rank's
+   step times beside phase 6's, one more step profiled (busy, launches, the
+   collectives' spans, the all-reduce's beside the step) and the
+   all-reduce of a step's gradients timed alone;
+   (c) the same at data 1 x model 2 (the stage-2 FCs split), if gloo's
+   all_gather takes CUDA tensors here (else it says that it is left out);
+   (d) the ``Evaluator`` on two ranks over gloo, phase 9's tree and step-4
+   checkpoint, swept twice (the first pays the fresh processes' warm-up):
+   every prediction row within 1e-3 px (2D box) and 1e-4 (3D box, score)
+   of one process's sweep of that checkpoint (both with kernel A's bf16
+   accumulation under deterministic algorithms), A and C twice a batch in each rank, both APs,
+   frames/s beside phase 9's; one ``[parallel/ phase 19]`` JSON line;
+20. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
@@ -132,6 +162,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1537,14 +1568,13 @@ def eval_batch_profile(ev, batch, serving, sweep_s: float, n_batches: int) -> No
               f"phase 3's profiled serving request: {ref}")
 
 
-def eval_phase(device, cfg, root: str, workdir: str, serving) -> None:
+def eval_phase(device, cfg, root: str, workdir: str, serving) -> dict:
     """Phase 9: ``Evaluator`` at full width over the tree's val split (20
     frames at batch 8: the tail batch of 4 padded) through
     ``repeated_checkpoint_run``, on the checkpoint of step 4 that phase 8's
     ``Trainer`` wrote; then one profiled eval batch and the evaluation and
-    inference CLIs. Removes the tree and the workdir."""
-
-    import math
+    inference CLIs. Returns the sweep's result; phase 19 reads the tree and
+    the workdir, then removes them."""
 
     from sparse_pooling_tpu_torch.experiments import run_evaluation, run_inference
     from sparse_pooling_tpu_torch.runtime import metrics
@@ -1632,8 +1662,7 @@ def eval_phase(device, cfg, root: str, workdir: str, serving) -> None:
         gap = f"max abs difference {max(diffs, default=0.0):.3e}" if same else "the rows differ"
         print(f"[eval] run_inference {sid} at batch 1: {len(got)} rows, the sweep at batch {BATCH} {len(want)}; "
               f"{gap} (info: bf16 convolutions at another batch size)")
-    shutil.rmtree(workdir)
-    shutil.rmtree(root)
+    return res
 
 
 # ------------------------------------------------------------ the rcnn family and the people preset
@@ -2126,6 +2155,446 @@ def remat_step(device, train_peak: float) -> dict:
     return out
 
 
+# ------------------------------------------------------------ 19. parallel/ on the card
+
+PAR_STEPS = 2
+PAR_TOL = 2.0**-6  # losses (relative), gradients and parameters (of each tensor's largest): ranks against one process
+# each tensor's step-2 update (its weights after step 2 less the shared step-1
+# checkpoint's) against one process's, in relative L2: a skipped update reads
+# 1, a halved one 0.5; Adam divides each element's gradient by its own size,
+# so an element whose gradient sits near the bf16 noise moves by a fraction
+# of lr that its last bits decide
+UPDATE_TOL = 2.0**-4
+COLLECTIVES = ("gloo:", "nccl:", "all_reduce", "all_gather", "allreduce", "allgather", "broadcast")
+
+
+def parallel_config(model_parallel: int = 1, data_parallel: bool = True):
+    """Phase 19's training config: the cars preset at full width with kernel
+    A's bf16 accumulation (it sums each row in the points' order), batch 8,
+    a summary and a checkpoint every step."""
+
+    return train_config(cars_option(sparse_pool=dict(accum_dtype="bfloat16")), batch_size=BATCH,
+                        checkpoint_interval=1, summary_interval=1, model_parallel=model_parallel,
+                        data_parallel=data_parallel)
+
+
+def phase6_frames(cfg):
+    return train_frames(cfg.model, AreaExtents(), range(100, 100 + 2 * BATCH), N_POINTS)
+
+
+def gather_probe(device) -> str:
+    """'' if gloo's all_gather takes CUDA tensors in this PyTorch, else why
+    not (the one capability the tensor-parallel phase needs and the data
+    phase does not: DDP reduces with all_reduce only)."""
+
+    import torch.distributed as dist
+
+    x = torch.full((3,), float(dist.get_rank()), device=device)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    try:
+        dist.all_gather(parts, x)
+    except RuntimeError as e:  # the probe: a refusal is reported, the phase does not carry on quietly
+        return f"{type(e).__name__}: {e}"
+    check(all(bool((p == r).all()) for r, p in enumerate(parts)), f"all_gather of CUDA tensors gave {parts}")
+    return ""
+
+
+def is_annotation(e) -> bool:
+    """A profiler range (record_function, a collective's span) rather than a
+    kernel: newer PyTorch puts such ranges on the device's timeline."""
+
+    flag = getattr(e, "is_user_annotation", None)
+    if flag is not None:
+        return bool(flag)
+    return "." in e.key.split("<")[0] or "#" in e.key or e.key.startswith(("gloo:", "nccl:"))
+
+
+def profile_rank_step(step, batch, gen, label: str) -> dict:
+    """One step under torch.profiler: device busy (kernels and copies only),
+    launches, and the collectives' spans (ms) by name."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(batch, gen)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not is_annotation(e)]
+    spans = {}
+    for e in events:
+        if any(c in e.key.lower() for c in COLLECTIVES):
+            ms = max(e.device_time_total, e.cpu_time_total) / 1e3
+            spans[e.key] = max(spans.get(e.key, 0.0), ms)
+    busy = sum(ms for _, ms, _ in kernels)
+    print(f"[parallel {label}] rank 0, one more step profiled: device busy {busy:.2f} ms in "
+          f"{sum(n for _, _, n in kernels)} kernel launches; collectives' spans (ms): "
+          + (", ".join(f"{k} {v:.2f}" for k, v in sorted(spans.items())) or "none recorded"))
+    return {"busy_ms": busy if kernels else None, "device_launches": sum(n for _, _, n in kernels),
+            "collective_ms": spans}
+
+
+def parallel_rank(rank: int, root: str, frames) -> dict:
+    """One of two ranks on the one card over gloo (phase 19 b and c), with
+    deterministic algorithms: the Trainer on a data-2 mesh, then on a
+    model-2 mesh. Each takes step 1 from the seeded init (its gradients
+    kept, gathered to the full layout), then, as a fresh trainer over a
+    workdir that holds one process's step-1 checkpoint, step 2 (the mesh
+    slices the single-card layout); launches counted around exactly these 2
+    steps; one more step profiled (rank 0); the all-reduce of a step's
+    gradients timed on the data group."""
+
+    import torch.distributed as dist
+
+    from sparse_pooling_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    ext = AreaExtents()
+    out = {}
+    for label, mp in (("data", 1), ("model", 2)):
+        if label == "model":
+            why = gather_probe(device)
+            if why:
+                out[label] = {"left_out": why}
+                continue
+        cfg = parallel_config(mp)
+        dataset = tr.FrameDataset(frames, buckets=cfg.model.sparse_pool.buckets)
+        first = tr.Trainer(cfg, dataset, ext, workdir=f"{root}/{label}", device=device)
+        torch.cuda.synchronize()
+        reset_counts()
+        first.train(max_steps=1)
+        grads = mesh_mod.gather_params({n: p.grad for n, p in first.model.named_parameters()}, first.mesh)
+        grads = {n: g.float().cpu() for n, g in grads.items()} if rank == 0 else None
+        second = tr.Trainer(cfg, dataset, ext, workdir=f"{root}/{label}_resumed", device=device)
+        state = second.train(max_steps=PAR_STEPS)
+        torch.cuda.synchronize()
+        rows = mesh_mod.batch_rows(second.mesh, BATCH)
+        rec = {"mesh": second.mesh.shape, "launches": counts(), "step_ms": first.step_ms + second.step_ms,
+               "rows": f"{rows.start}-{rows.stop - 1}", "grads": grads}
+        check(state.step == PAR_STEPS, f"rank {rank} {label}: stopped at step {state.step}")
+        arrays = next(dataset.batches(BATCH, rows=rows))[0]
+        batch = pl.RawSample(*(None if a is None else torch.from_numpy(a).to(device) for a in arrays))
+        if rank == 0:
+            rec.update(profile_rank_step(second.train_step, batch, second.generator, label))
+        else:
+            second.train_step(batch, second.generator)
+        torch.cuda.synchronize()
+        if second.mesh.n_data > 1:
+            n = sum(p.numel() for p in second.model.parameters())
+            buf = torch.ones(n, device=device)
+            times = []
+            for _ in range(6):
+                dist.barrier(group=second.mesh.data_group)
+                t0 = time.perf_counter()
+                dist.all_reduce(buf, group=second.mesh.data_group)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            rec["all_reduce_ms"], rec["all_reduce_mb"] = float(np.median(times[1:])), 4 * n / 2**20
+        out[label] = rec
+        del first, second, state
+    return out
+
+
+def evaluate_rank(rank: int, ecfg, workdir: str) -> dict:
+    """One of two evaluation ranks on the one card over gloo (phase 19 d),
+    under deterministic algorithms: the sweep of the step-4 checkpoint twice (the first pays the fresh
+    process's warm-up); launches counted around the second."""
+
+    from sparse_pooling_tpu_torch.runtime.evaluator import Evaluator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    ev = Evaluator(ecfg, extents=AreaExtents(), workdir=workdir, device=device)
+    cold = ev.run_checkpoint_once(KITTI_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = ev.run_checkpoint_once(KITTI_STEPS)
+    torch.cuda.synchronize()
+    return {"result": res, "cold": cold, "launches": counts(), "mesh": ev.mesh.shape, "phases": dict(ev.phases)}
+
+
+def read_rows(pred_dir: str) -> dict:
+    rows = {}
+    for name in sorted(os.listdir(pred_dir)):
+        with open(f"{pred_dir}/{name}") as f:
+            parts = [line.split() for line in f if line.strip()]
+        rows[name] = ([p[0] for p in parts], np.array([[float(v) for v in p[3:]] for p in parts]).reshape(-1, 13))
+    return rows
+
+
+def rows_gap(got: dict, want: dict) -> tuple:
+    """(files and classes equal, largest 2D box gap in px, largest gap of the
+    3D box and score) between two prediction directories' rows."""
+
+    same = sorted(got) == sorted(want) and all(got[k][0] == want[k][0] for k in want)
+    if not same:
+        return False, float("inf"), float("inf")
+    gap2d = max((float(np.abs(got[k][1][:, 1:5] - want[k][1][:, 1:5]).max()) for k in want if len(want[k][0])),
+                default=0.0)
+    cols = [0, *range(5, 13)]
+    gap3d = max((float(np.abs(got[k][1][:, cols] - want[k][1][:, cols]).max()) for k in want if len(want[k][0])),
+                default=0.0)
+    return True, gap2d, gap3d
+
+
+def tensor_gap(got: dict, want: dict) -> tuple:
+    """The largest of |got - want| over each tensor's largest |want|, and
+    its tensor's name."""
+
+    check(got.keys() == want.keys(), "tensor names differ")
+    return max((float((got[k].float() - v.float()).abs().max()) / max(float(v.abs().max()), 1e-30), k)
+               for k, v in want.items())
+
+
+def multihost_phase(cfg) -> None:
+    """19a: ``run_training --multihost`` as a subprocess, world 1 over NCCL,
+    on phase 8's tree for 2 steps."""
+
+    from sparse_pooling_tpu_torch.parallel import launch
+
+    exp = str(kernels.BUILD_DIR.parent / "chip_smoke_multihost")
+    shutil.rmtree(exp, ignore_errors=True)
+    os.makedirs(exp)
+    mcfg = dataclasses.replace(cfg, experiments_dir=exp, checkpoint_name="multihost")
+    path = f"{exp}/pipeline.json"
+    with open(path, "w") as f:
+        f.write(mcfg.to_json())
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(launch.free_port()), WORLD_SIZE="1",
+               RANK="0", LOCAL_RANK="0", PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sparse_pooling_tpu_torch.experiments.run_training", "--multihost",
+                           "--pipeline_config", path, "--max_steps", str(PAR_STEPS)],
+                          env=env, cwd=here, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("[run_training]", "[trainer]"))]
+    for ln in lines:
+        print(f"  | {ln}")
+    check(proc.returncode == 0, f"run_training --multihost exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    check("process 0/1 (nccl) on cuda:0" in proc.stdout, "run_training --multihost did not report process 0/1 on nccl")
+    check("all_reduce of ones = 1" in proc.stdout, "the NCCL all_reduce of a CUDA tensor did not give 1")
+    check("[trainer] mesh" not in proc.stdout, "a world of 1 built a mesh (auto_mesh gives None at one rank)")
+    workdir = f"{exp}/multihost"
+    recs = read_scalars(f"{workdir}/summaries")
+    check([r["step"] for r in recs] == list(range(1, PAR_STEPS + 1)), f"steps {[r['step'] for r in recs]}")
+    check(all(np.isfinite(r[k]) for r in recs for k in (*LOSS_KEYS, "grad_norm")), "non-finite multihost losses")
+    check(ckpt_mod.all_steps(f"{workdir}/checkpoints") == [PAR_STEPS], "no multihost checkpoint at step 2")
+    print(f"[parallel a] run_training --multihost, world 1 over NCCL: process_info and the all_reduce of a CUDA "
+          f"tensor as printed; auto_mesh gave None (single-card path); {PAR_STEPS} steps over the KITTI tree, "
+          f"totals {[round(r['total'], 5) for r in recs]}, step times "
+          f"{[round(r['step_ms'], 2) for r in recs]} ms (CUDA events); checkpoint {PAR_STEPS}; "
+          f"{wall:.1f} s with the process's start")
+    shutil.rmtree(exp)
+
+
+def training_parallel_phase(device, frame_step_ms: float) -> dict:
+    """19b and 19c: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), data 2 then model 2, against one process: step 1
+    from the same seeded init (losses, every gradient), step 2 from the same
+    step-1 checkpoint, one process's (losses, every parameter after it)."""
+
+    from sparse_pooling_tpu_torch.parallel import launch
+
+    ext = AreaExtents()
+    root = str(kernels.BUILD_DIR.parent / "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # one process, under the same deterministic algorithms: step 1, its
+    # gradients, then step 2 resumed from its step-1 checkpoint
+    cfg1 = parallel_config(data_parallel=False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        frames = phase6_frames(cfg1)
+        dataset = tr.FrameDataset(frames, buckets=cfg1.model.sparse_pool.buckets)
+        single = tr.Trainer(cfg1, dataset, ext, workdir=f"{root}/single", device=device)
+        single.train(max_steps=1)
+        ref_grads = {n: p.grad.float().cpu() for n, p in single.model.named_parameters()}
+        start = ckpt_mod.restore(f"{root}/single/checkpoints", 1, map_location="cpu")["model"]
+        for label in ("data", "model"):
+            shutil.copytree(f"{root}/single/checkpoints/1", f"{root}/{label}_resumed/checkpoints/1")
+        single = tr.Trainer(cfg1, dataset, ext, workdir=f"{root}/single", device=device)
+        single.train(max_steps=PAR_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref = read_scalars(f"{root}/single/summaries")
+    ref_params = ckpt_mod.restore(f"{root}/single/checkpoints", PAR_STEPS, map_location="cpu")["model"]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(parallel_rank, 2, (root, frames), backend="gloo", device=device.type,
+                         timeout_s=600)
+    wall = time.perf_counter() - t0
+    out = {"single_step_ms": [r["step_ms"] for r in ref], "wall_s": wall}
+    for label in ("data", "model"):
+        if "left_out" in ranks[0][label]:
+            print(f"[parallel c] the card phase of tensor parallelism is left out: gloo's all_gather refused "
+                  f"CUDA tensors ({ranks[0][label]['left_out']}); the CPU tests hold it")
+            out[label] = {"left_out": ranks[0][label]["left_out"]}
+            continue
+        tag = "b" if label == "data" else "c"
+        recs = read_scalars(f"{root}/{label}/summaries") + read_scalars(f"{root}/{label}_resumed/summaries")
+        check([r["step"] for r in recs] == list(range(1, PAR_STEPS + 1)), f"{label}: steps {recs}")
+        loss_gap = max(abs(r["total"] - w["total"]) / abs(w["total"]) for r, w in zip(recs, ref))
+        terms = {k: max(abs(r[k] - w[k]) for r, w in zip(recs, ref)) for k in LOSS_KEYS}
+        # the step-1 gradients over the whole model (relative L2), and the
+        # largest gap of one tensor, for information: a small tensor whose
+        # gradient sums millions of cancelling bf16 terms (the first conv's
+        # bias) moves by percents of its largest under any bf16 rounding
+        got_grads = ranks[0][label]["grads"]
+        grad_l2 = math.sqrt(sum(float((got_grads[k] - v).square().sum()) for k, v in ref_grads.items())
+                            / sum(float(v.square().sum()) for v in ref_grads.values()))
+        grad_gap, grad_where = tensor_gap(got_grads, ref_grads)
+        params = ckpt_mod.restore(f"{root}/{label}_resumed/checkpoints", PAR_STEPS, map_location="cpu")["model"]
+        # weights against their largest, as the gradients; the biases start
+        # at 0, so after two Adam steps each is a few lr in size, and an
+        # element whose gradient is near 0 in both steps moves by a fraction
+        # of lr that the last bits of its gradient decide: their gap is
+        # reported in units of lr
+        weight_names = [k for k, v in ref_params.items() if v.dim() > 1]
+        param_gap, param_where = tensor_gap({k: params[k] for k in weight_names},
+                                            {k: ref_params[k] for k in weight_names})
+        lr = cfg1.train.optimizer.initial_lr
+        bias_gap, bias_where = max((float((params[k] - v).abs().max()) / lr, k)
+                                   for k, v in ref_params.items() if v.dim() == 1)
+        # each tensor's step-2 update against one process's (both from the
+        # same step-1 checkpoint), biases included
+        updates = {k: float((params[k].float() - v.float()).norm())
+                   / max(float((v.float() - start[k].float()).norm()), 1e-30) for k, v in ref_params.items()}
+        worst = sorted(updates.items(), key=lambda kv: -kv[1])[:3]
+        update_gap, update_where = worst[0][1], worst[0][0]
+        mesh = ranks[0][label]["mesh"]
+        print(f"[parallel {tag}] {mesh} over 2 ranks on one card (gloo, CUDA tensors), batch {BATCH} "
+              f"({BATCH // mesh['data']} rows a rank), deterministic algorithms: totals "
+              f"{[r['total'] for r in recs]} against one process's {[w['total'] for w in ref]} (step 1 from "
+              f"the same init, step 2 from one process's step-1 checkpoint, sliced by the mesh): largest "
+              f"relative gap {loss_gap:.3e} (tol {PAR_TOL:g}); every term's largest abs gap "
+              + ", ".join(f"{k} {v:.2e}" for k, v in terms.items())
+              + f"; step-1 gradients: relative L2 gap over the model {grad_l2:.3e} (tol {PAR_TOL:g}), largest "
+              f"gap of one tensor {grad_gap:.3e} of its largest ({grad_where}); weights after step {PAR_STEPS}: largest gap {param_gap:.3e} of a tensor's largest "
+              f"({param_where}; tol {PAR_TOL:g}); biases (0 at init): largest gap {bias_gap:.3f} lr ({bias_where}); step-2 "
+              f"update of each tensor against one process's, relative L2 over {len(updates)} tensors (biases "
+              f"included): largest " + ", ".join(f"{k} {v:.3e}" for k, v in worst) + f" (tol {UPDATE_TOL:g})")
+        for rank, rr in enumerate(ranks):
+            rec = rr[label]
+            per_step = {k: v / PAR_STEPS for k, v in rec["launches"].items()}
+            span = rec.get("collective_ms", {}).get("gloo:all_reduce")
+            print(f"[parallel {tag}] rank {rank} rows {rec['rows']}: launches a step "
+                  + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+                  + f"; step times {[round(t, 2) for t in rec['step_ms']]} ms (CUDA events; step 1 pays the "
+                  f"process's warm-up) against phase 6's median {frame_step_ms:.2f} ms (batch {BATCH}, one "
+                  f"process) and this phase's one process {[round(r['step_ms'], 2) for r in ref]} ms"
+                  + (f"; all_reduce of the step's {rec['all_reduce_mb']:.1f} MB of f32 gradients on the data "
+                     f"group {rec['all_reduce_ms']:.2f} ms = {rec['all_reduce_ms'] / rec['step_ms'][-1]:.3f} of "
+                     f"step {PAR_STEPS}" if "all_reduce_ms" in rec else "")
+                  + (f"; the profiled step's gloo:all_reduce span {span:.2f} ms = "
+                     f"{span / rec['step_ms'][-1]:.3f} of step {PAR_STEPS} (summed over the "
+                     f"step's all-reduces, each from its start to its end: the backward and the wait for the "
+                     f"other rank overlap it)" if span is not None else ""))
+        check(loss_gap <= PAR_TOL, f"{label}: losses differ from one process's by {loss_gap:.3e} relative")
+        check(grad_l2 <= PAR_TOL, f"{label}: step-1 gradients differ by {grad_l2:.3e} (relative L2)")
+        check(param_gap <= PAR_TOL, f"{label}: weight {param_where} differs by {param_gap:.3e} of its largest")
+        check(update_gap <= UPDATE_TOL, f"{label}: the step-2 update of {update_where} differs from one "
+                                        f"process's by {update_gap:.3e} (relative L2)")
+        for rank, rr in enumerate(ranks):
+            for name in ("A", "C", "A-bwd", "C-bwd"):
+                check(rr[label]["launches"][name] == 2 * PAR_STEPS,
+                      f"{label} rank {rank}: kernel {name} launched {rr[label]['launches'][name]} times in "
+                      f"{PAR_STEPS} steps, not 2 a step")
+        out[label] = {"loss_gap": loss_gap, "grad_l2_gap": grad_l2, "grad_gap": grad_gap, "weight_gap": param_gap,
+                      "bias_gap_lr": bias_gap, "update_gap": update_gap, "update_where": update_where,
+                      "ranks": [{k: v for k, v in rr[label].items() if k not in ("rows", "grads")} for rr in ranks]}
+    print(f"[parallel b-c] both meshes in {wall:.1f} s with the ranks' start")
+    shutil.rmtree(root)
+    return out
+
+
+def eval_parallel_phase(device, cfg, root: str, workdir: str, sweep: dict) -> dict:
+    """19d: the ``Evaluator`` on two ranks over gloo on the one card, phase 9's
+    tree and step-4 checkpoint, against one process's sweep of the same
+    checkpoint, both with kernel A's bf16 accumulation under deterministic
+    algorithms: kernel A's f32 mode sums in an order that its atomics
+    decide, and the NMS can turn a last-bit difference into other rows, so
+    two sweeps in that mode need not write the same rows. Frames/s beside
+    phase 9's."""
+
+    from sparse_pooling_tpu_torch.parallel import launch
+    from sparse_pooling_tpu_torch.runtime.evaluator import Evaluator
+
+    mc = cfg.model
+    ecfg = dataclasses.replace(
+        cfg, dataset=dataclasses.replace(cfg.dataset, split="val"),
+        model=dataclasses.replace(mc, sparse_pool=dataclasses.replace(mc.sparse_pool, accum_dtype="bfloat16")))
+    one, two = (str(kernels.BUILD_DIR.parent / f"chip_smoke_parallel_eval{k}") for k in ("_one", ""))
+    for w in (one, two):
+        shutil.rmtree(w, ignore_errors=True)
+        shutil.copytree(f"{workdir}/checkpoints", f"{w}/checkpoints")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = Evaluator(ecfg, extents=AreaExtents(), workdir=one, device=device).run_checkpoint_once(KITTI_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(evaluate_rank, 2, (ecfg, two), backend="gloo", device=device.type,
+                         timeout_s=600)
+    wall = time.perf_counter() - t0
+    sub = f"predictions/kitti_native_eval/{ecfg.eval.kitti_score_threshold:g}/{KITTI_STEPS}/data"
+    same, gap2d, gap3d = rows_gap(read_rows(f"{two}/{sub}"), read_rows(f"{one}/{sub}"))
+    res, cold = ranks[0]["result"], ranks[0]["cold"]
+    n_batches = -(-len(KITTI_VAL) // BATCH)
+    for rank, rr in enumerate(ranks):
+        print(f"[parallel d] rank {rank}: mesh {rr['mesh']}, launches in the second sweep " + ", ".join(
+            f"{k} {v}" for k, v in rr["launches"].items()) + "; its phases (s) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rr["phases"].items()))
+    print(f"[parallel d] 2 ranks, {res['num_frames']} val frames at batch {BATCH} ({BATCH // 2} rows a rank): "
+          f"{res['frames_per_sec']:.2f} frames/s with host IO ({res['seconds']:.3f} s; the first sweep, with the "
+          f"fresh processes' warm-up, {cold['frames_per_sec']:.2f}) against phase 9's one process "
+          f"{sweep['frames_per_sec']:.2f} frames/s ({sweep['seconds']:.3f} s) and this phase's one process, cold, "
+          f"{ref['frames_per_sec']:.2f}; {wall:.1f} s with the ranks' start")
+    print(f"[parallel d] rows against one process's sweep (kernel A's bf16 accumulation, deterministic "
+          f"algorithms on both sides): files and classes equal {same}; largest gap 2D box {gap2d:.3e} px "
+          f"(tol 1e-3), 3D box and score {gap3d:.3e} (tol 1e-4)")
+    print(f"[parallel d] AP two ranks {json.dumps(res['ap'])}; one process {json.dumps(ref['ap'])}")
+    check(res["num_frames"] == len(KITTI_VAL) and all(rr["result"] == res for rr in ranks),
+          "the ranks' results differ or miss frames")
+    check(same and gap2d <= 1e-3 and gap3d <= 1e-4, "the two-rank rows differ from the one-process sweep's")
+    for rank, rr in enumerate(ranks):
+        for name in ("A", "C"):
+            check(rr["launches"][name] == 2 * n_batches,
+                  f"eval rank {rank}: kernel {name} launched {rr['launches'][name]} times in {n_batches} batches")
+    for w in (one, two):
+        shutil.rmtree(w)
+    return {"frames_per_sec": res["frames_per_sec"], "cold_frames_per_sec": cold["frames_per_sec"],
+            "gap_2d": gap2d, "gap_3d": gap3d}
+
+
+def parallel_phase(device, kitti_cfg, kitti_root: str, kitti_workdir: str, sweep: dict,
+                   frame_step_ms: float) -> dict:
+    """Phase 19: parallel/ on the one card (a)-(d), after the dry run of
+    ``parallel/dryrun.py`` (4 CPU ranks over gloo against one process)."""
+
+    from sparse_pooling_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(4)
+    print(f"[parallel dryrun] dryrun_multichip(4): mesh {dry['mesh']}, losses {dry['sharded_losses']} equal one "
+          f"process's {dry['single_losses']} at rtol {dryrun.LOSS_RTOL:g} (CPU ranks, the unittest preset); "
+          f"{time.perf_counter() - t0:.1f} s")
+    multihost_phase(kitti_cfg)
+    out = {"training": training_parallel_phase(device, frame_step_ms)}
+    out["eval"] = eval_parallel_phase(device, kitti_cfg, kitti_root, kitti_workdir, sweep)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[parallel] phase 19 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -2255,7 +2724,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
 
     # 9. evaluation: the checkpoint phase 8 wrote, over the tree's val split
     print("[evaluation]")
-    eval_phase(device, kitti_cfg, kitti_root, kitti_workdir, serving_kernels)
+    sweep = eval_phase(device, kitti_cfg, kitti_root, kitti_workdir, serving_kernels)
 
     # 10-13. the rcnn family: serving, training, card vs CPU; the people preset
     print("[rcnn serving]")
@@ -2269,6 +2738,13 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
 
     # 14-18. the AVOD detector's model options at full width
     options = options_phase(device, train_peak)
+
+    # 19. parallel/: run_training --multihost over NCCL, data and tensor
+    # parallelism and the evaluator on two ranks sharing the card over gloo
+    print("[parallel]")
+    parallel = parallel_phase(device, kitti_cfg, kitti_root, kitti_workdir, sweep, frame_step_ms)
+    shutil.rmtree(kitti_workdir)
+    shutil.rmtree(kitti_root)
 
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
@@ -2297,6 +2773,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
         "people": {"launches": people["launches"], "train_launches": people["train_launches"],
                    "max_abs_err": people["max_abs_err"], "request_ms": people["request_ms"]}}))
     print("[model options P1-P5] " + json.dumps(options))
+    print("[parallel/ phase 19] " + json.dumps(parallel))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))

@@ -214,14 +214,20 @@ class KittiDataset:
             np.random.RandomState(self.cfg.seed + epoch).shuffle(ids)
         return ids
 
-    def batches(self, batch_size: int, epoch: int = 0, augment: bool = True) -> Iterator[tuple]:
+    def batches(self, batch_size: int, epoch: int = 0, augment: bool = True,
+                rows: Optional[slice] = None) -> Iterator[tuple]:
         """Yield (stacked arrays in ``RawSample`` order, sample ids) per
-        batch; drops the ragged tail batch (static shapes)."""
+        batch; drops the ragged tail batch (static shapes). With ``rows``, a
+        data-parallel rank's share: only those rows of each batch are loaded
+        (their augmentation seeds are per sample, so the rows equal those of
+        the whole batch)."""
 
         ids = self.epoch_ids(epoch)
         for start in range(0, len(ids) - batch_size + 1, batch_size):
             chunk = ids[start : start + batch_size]
-            canvas_b = self.alloc_image_batch(batch_size)
+            if rows is not None:
+                chunk = chunk[rows]
+            canvas_b = self.alloc_image_batch(len(chunk))
             samples = [
                 self.load_sample(
                     sid,

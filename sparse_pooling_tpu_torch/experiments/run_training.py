@@ -2,12 +2,20 @@
 
     python -m sparse_pooling_tpu_torch.experiments.run_training --preset cars \
         --dataset_root <KITTI object tree> [--max_steps N] [--device cuda]
+    torchrun --nproc_per_node 8 -m sparse_pooling_tpu_torch.experiments.run_training \
+        --multihost --preset cars --dataset_root <tree>
 
 Port of ``sparse_pooling_tpu.experiments.run_training``: a JSON pipeline
 config (``--pipeline_config``) or a preset, with the data split, dataset
-root, experiments directory, step count and batch size overridable. Trains
-on one card (``--device``, default ``cuda``; ``cpu`` runs the plain
-PyTorch path). ``--multihost`` raises until ``parallel/`` is ported.
+root, experiments directory, step count and batch size overridable.
+
+``--multihost`` joins the process group that torchrun (or another launcher)
+describes in the environment (``parallel.multihost.initialize``), prints
+``process_info``, checks one all-reduce over the world and trains on the
+mesh ``Trainer`` lays over it. Without it, with ``train.data_parallel`` set
+and more than one card visible, the CLI starts one rank per card itself
+(NCCL, rank = card); else it trains on one card (``--device``, default
+``cuda``; ``cpu`` runs the plain PyTorch path).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training; not ported (raises NotImplementedError)")
+                   help="join the process group of MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK (torchrun's)")
     return p.parse_args(argv)
 
 
@@ -53,16 +61,47 @@ def load_config(args):
     return cfg
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost: the port's parallel/ (torch.distributed) is not ported yet")
-    cfg = load_config(args)
+def per_card_ranks(enabled: bool, device: str) -> int:
+    """The ranks the CLI starts itself: one per visible card when the
+    config's data parallelism is on and ``device`` names no single card."""
+
+    import torch
+
+    n = torch.cuda.device_count()
+    return n if enabled and device == "cuda" and n > 1 else 0
+
+
+def _train_rank(rank: int, cfg, max_steps):
     from sparse_pooling_tpu_torch.runtime.trainer import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
-    state = trainer.train(max_steps=args.max_steps)
-    print(f"[run_training] finished at step {state.step}")
+    state = Trainer(cfg, device="cuda").train(max_steps=max_steps)
+    return None if state is None else state.step
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = load_config(args)
+    from sparse_pooling_tpu_torch.parallel import launch, multihost
+    from sparse_pooling_tpu_torch.runtime.trainer import Trainer
+
+    ranks = per_card_ranks(cfg.train.data_parallel, args.device)
+    if ranks and not args.multihost:
+        print(f"[run_training] train.data_parallel: one rank per card, {ranks} ranks (nccl)")
+        steps = launch.spawn(_train_rank, ranks, (cfg, args.max_steps), backend="nccl", device="cuda",
+                             timeout_s=7 * 24 * 3600.0)
+        print(f"[run_training] finished at step {steps[0]}")
+        return steps[0]
+    if args.multihost:
+        multihost.initialize(device=args.device)
+        print(f"[run_training] {multihost.process_info()}; all_reduce of ones = "
+              f"{multihost.check_collective():g}", flush=True)
+    try:
+        state = Trainer(cfg, device=args.device).train(max_steps=args.max_steps)
+    finally:
+        if args.multihost:
+            multihost.shutdown()
+    if state is not None:
+        print(f"[run_training] finished at step {state.step}")
     return state
 
 

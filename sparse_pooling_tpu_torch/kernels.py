@@ -5,7 +5,8 @@ library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries go to ``build/torch_kernels/`` at the
 repository root, named by a hash of the sources and flags, so an edited
 source is rebuilt on first use and an unchanged one is loaded as is.
-``build_all`` starts every compile at once.
+``build_all`` starts every compile at once, under a file lock, so ranks
+that start together build each library once.
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a card need not have ``nvcc``.
@@ -14,6 +15,7 @@ machine without a card need not have ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -84,6 +86,12 @@ def build_all(names=KERNEL_SOURCES) -> Dict[str, float]:
     raises with the compiler's output if any compile fails."""
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_missing(names)
+
+
+def _build_missing(names) -> Dict[str, float]:
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()

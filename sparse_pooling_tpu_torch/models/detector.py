@@ -31,6 +31,7 @@ from torch import nn
 
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.backbone import VggPyramidExtractor
+from sparse_pooling_tpu_torch.models import draws
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
 from sparse_pooling_tpu_torch.models.layers import Conv, Dense, avg_pool
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
@@ -42,6 +43,7 @@ from sparse_pooling_tpu_torch.ops.crop_resize import (
     crop_and_resize_px_batch,
 )
 from sparse_pooling_tpu_torch.ops.nms import nms_batch, top_k_nms_batch
+from sparse_pooling_tpu_torch.parallel.tensor_parallel import copy_to_model, gather_from_model
 
 
 # stage-2 regression width per ``avod.box_rep``; "offsets" is the rcnn
@@ -89,13 +91,20 @@ class Stage2Head(nn.Module):
     layer, re-combined after each); ``fusion_method`` how: ``mean`` (before
     the FCs over the kept-branch count, after an FC over the branch count:
     an FC of a zeroed input is not zero) or ``concat``. One view takes the
-    early stack."""
+    early stack.
+
+    With a ``model_group`` (``parallel.mesh.shard_module`` sets it and cuts
+    each FC to its column shard) every FC runs tensor-parallel: the full
+    input in, this rank's output features, the full width gathered after it
+    (``parallel.tensor_parallel``); dropout then masks the gathered width,
+    so every model rank draws the same mask."""
 
     def __init__(self, in_features: int, fc_layers: Sequence[int], num_classes: int, dtype,
                  box_dim: int = 10, flip_head: bool = False, fusion_type: str = "early",
                  fusion_method: str = "mean", n_views: int = 1):
         super().__init__()
         self.dtype, self.n_fc, self.fusion_method = dtype, len(fc_layers), fusion_method
+        self.model_group = None
         self.fusion_type = fusion_type if n_views > 1 and fusion_type in ("late", "deep") else "early"
         mult = 2 if n_views > 1 and fusion_method == "concat" else 1
         widths = [in_features, *fc_layers]
@@ -131,9 +140,13 @@ class Stage2Head(nn.Module):
         views = [v.reshape(b, p, -1).to(self.dtype) for v in roi_views]
 
         def fc(name, x):
-            x = torch.relu(getattr(self, name)(x))
+            if self.model_group is None:
+                x = torch.relu(getattr(self, name)(x))
+            else:
+                x = copy_to_model(x, self.model_group)
+                x = torch.relu(gather_from_model(getattr(self, name)(x), self.model_group))
             if keep_prob < 1.0:
-                keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+                keep = draws.rand(x.shape, generator, x.device) < keep_prob
                 x = torch.where(keep, x / keep_prob, 0.0)
             return x
 

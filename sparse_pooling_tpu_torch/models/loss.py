@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
+from sparse_pooling_tpu_torch.models import draws
 from sparse_pooling_tpu_torch.ops import encoders, projection
 from sparse_pooling_tpu_torch.ops.losses import weighted_smooth_l1, weighted_softmax_ce
 from sparse_pooling_tpu_torch.ops.target_assign import sample_minibatch
@@ -44,7 +45,8 @@ def detector_loss_batch(
 
     ``noise`` (RPN [B, A], stage 2 [B, P], uniform [0, 1)) fixes the
     sampling priorities; otherwise they are drawn from ``generator`` on the
-    outputs' device, RPN first."""
+    outputs' device, RPN first (``draws.rand``: at the global batch's shape
+    for a ``draws.BatchRows``)."""
 
     mb_cfg = cfg.mini_batch
     anchors = outputs["anchors"][..., :6]
@@ -52,8 +54,8 @@ def detector_loss_batch(
     dev = anchors.device
     if noise is None:
         noise = (
-            torch.rand(anchors.shape[:2], generator=generator, device=dev),
-            torch.rand(proposals.shape[:2], generator=generator, device=dev),
+            draws.rand(anchors.shape[:2], generator, dev),
+            draws.rand(proposals.shape[:2], generator, dev),
         )
     rpn_noise, s2_noise = noise
     gt_anchors = encoders.box_3d_to_anchor(gt_boxes_3d)

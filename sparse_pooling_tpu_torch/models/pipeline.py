@@ -23,6 +23,7 @@ import torch
 
 from sparse_pooling_tpu_torch import resolve_device
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
+from sparse_pooling_tpu_torch.models import draws
 from sparse_pooling_tpu_torch.models.detector import SparsePoolingDetector, decode_detections
 from sparse_pooling_tpu_torch.models.fusion_rcnn import (
     FusionRcnn,
@@ -210,14 +211,15 @@ def sample_path_keep(generator: Optional[torch.Generator], cfg: ModelConfig,
                      batch_size: Optional[int] = None, device=None) -> torch.Tensor:
     """Path-drop flags: keep each branch with its configured probability,
     but never drop both (a third draw revives one). [2] f32, or [B, 2] with
-    ``batch_size``; drawn on ``device`` (default the generator's)."""
+    ``batch_size``; drawn on ``device`` (default the generator's), at the
+    global batch's shape for a ``draws.BatchRows``."""
 
     n = 1 if batch_size is None else batch_size
     dev = device if device is not None else (generator.device if generator is not None else "cpu")
     if not cfg.path_drop.enabled:
         keep = torch.ones((n, 2), dtype=torch.float32, device=dev)
     else:
-        u = torch.rand((n, 3), generator=generator, device=dev)
+        u = draws.rand((n, 3), generator, dev)
         bev = u[:, 0] < cfg.path_drop.bev_keep_prob
         img = u[:, 1] < cfg.path_drop.img_keep_prob
         neither = ~(bev | img)

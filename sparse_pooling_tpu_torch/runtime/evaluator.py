@@ -1,4 +1,5 @@
-"""Evaluation on one card: checkpoint sweep -> KITTI predictions -> AP.
+"""Evaluation on one card or a data-parallel mesh: checkpoint sweep ->
+KITTI predictions -> AP.
 
 Port of ``sparse_pooling_tpu.runtime.evaluator``. ``run_checkpoint_once``
 restores one checkpoint into the serving model (parameters in the compute
@@ -24,9 +25,19 @@ to the writer; a pinned buffer is reused only after the writer has read it.
 The AP backend is always the native evaluator: a failed build or load
 raises (the numpy oracle, ``runtime.metrics``, is its twin in the tests).
 Not ported: the prediction image summary, which draws with PIL and
-``demos/vis_utils`` (ROADMAP Queue 1), and the data-parallel mesh (with
-``eval.data_parallel`` set and more than one card visible the evaluator
-says that it evaluates on one).
+``demos/vis_utils`` (ROADMAP Queue 1).
+
+In a process group with ``eval.data_parallel`` set, the evaluator lays
+``parallel.mesh.auto_mesh(eval.batch_size)`` over the world (data axis
+only, the model replicated on every rank, as the JAX evaluator's mesh):
+each rank loads and runs its rows of every global val batch, the tail batch
+padded as one process pads it, and writes its own frames' files; after a
+barrier rank 0 scores AP and writes ``eval_<step>.json`` and
+``evaluated_steps.txt``, and every rank returns its result. Rank 0 decides
+which checkpoints a sweep takes, so the ranks never disagree on them.
+Without a process group, with ``eval.data_parallel`` set and more cards
+visible, the evaluator says that it evaluates on one and names
+``run_evaluation``, which starts one rank per card.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sparse_pooling_tpu_torch import resolve_device
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, PipelineConfig
@@ -49,6 +61,8 @@ from sparse_pooling_tpu_torch.data.dataset import KittiDataset
 from sparse_pooling_tpu_torch.data.prefetch import DevicePrefetcher
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.native import kitti_eval, pred_format
+from sparse_pooling_tpu_torch.parallel import mesh as mesh_mod
+from sparse_pooling_tpu_torch.parallel import multihost
 from sparse_pooling_tpu_torch.runtime import checkpoint as ckpt_mod
 from sparse_pooling_tpu_torch.runtime import predictions as pred_mod
 from sparse_pooling_tpu_torch.runtime.summary import SummaryWriter
@@ -96,15 +110,26 @@ class Evaluator:
         self.dataset = KittiDataset(cfg.dataset, cfg.model, extents) if dataset is None else dataset
         self.workdir = workdir or os.path.join(cfg.experiments_dir, cfg.checkpoint_name)
         self.ckpt_dir = os.path.join(self.workdir, "checkpoints")
-        if cfg.eval.data_parallel and torch.cuda.device_count() > 1:
-            print(f"[evaluator] eval.data_parallel is set and {torch.cuda.device_count()} cards are "
-                  f"visible, but the port evaluates on one ({self.device}): parallel/ is not ported yet")
+        self.mesh: Optional[mesh_mod.Mesh] = None
+        self.rank, self.idle = 0, False
+        if dist.is_available() and dist.is_initialized():
+            self.rank = dist.get_rank()
+            if cfg.eval.data_parallel:
+                self.mesh = mesh_mod.auto_mesh(max(cfg.eval.batch_size, 1))
+            self.idle = not self.mesh.member if self.mesh is not None else self.rank != 0
+            if self.mesh is not None and self.rank == 0:
+                print(f"[evaluator] mesh data={self.mesh.n_data} (batch {cfg.eval.batch_size} split) over "
+                      f"{self.mesh.size} of {dist.get_world_size()} ranks")
+        elif cfg.eval.data_parallel and torch.cuda.device_count() > 1:
+            print(f"[evaluator] eval.data_parallel is set and {torch.cuda.device_count()} cards are visible, "
+                  f"but this process has no process group: it evaluates on one ({self.device}). To use all "
+                  "of them, run experiments.run_evaluation (it starts one rank per card)")
         # built now: a failed build raises before a sweep, and no sweep's clock pays for it
         pred_format.library()
         kitti_eval.library()
         self.model = pl.make_model(cfg.model, extents, device=self.device)
         self.anchors_static = pl.static_anchor_grid(cfg.model, extents, device=self.device)
-        self.summary = SummaryWriter(os.path.join(self.workdir, "eval_summaries"))
+        self.summary = SummaryWriter(os.path.join(self.workdir, "eval_summaries")) if self.rank == 0 else None
         # the last run's phase breakdown (seconds): consumer, writer, worker, loader
         self.phases: Dict[str, float] = {}
         self.loader_timings: Dict[str, float] = {}
@@ -131,16 +156,19 @@ class Evaluator:
 
         return {"boxes_3d": packed[..., :7], "scores": packed[..., 7], "valid": packed[..., 8] > 0.5}
 
-    def _host_batches(self, batch_size: int):
+    def _host_batches(self, batch_size: int, rows: Optional[slice] = None):
         """Yield (stacked arrays in ``RawSample`` order, (ids, samples)) over
         the split in order, without augmentation. The samples of a batch load
         on ``eval.num_workers`` threads (at most the host's cores): the PNG
         inflate and the native decode and point filter release the GIL. The
         tail batch is padded by repeating its last sample and its canvas
         row; ``ids`` holds only the real frames, and the writer skips the
-        rest. ``loader_timings``: the loads' wall time and their CPU time
-        summed over threads (wall far above CPU / threads means the threads
-        wait, on the GIL or the scheduler), and the same for stacking."""
+        rest. With ``rows`` only those rows of each padded batch load (a
+        data-parallel rank's; rows wholly past the real frames load the
+        last real frame once). ``loader_timings``: the loads' wall time and
+        their CPU time summed over threads (wall far above CPU / threads
+        means the threads wait, on the GIL or the scheduler), and the same
+        for stacking."""
 
         ids = list(self.dataset.sample_ids)
         workers = max(min(int(self.cfg.eval.num_workers), os.cpu_count() or 1), 1)
@@ -154,15 +182,18 @@ class Evaluator:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             for start in range(0, len(ids), batch_size):
                 chunk = ids[start:start + batch_size]
+                last, n_rows = chunk[-1], batch_size
+                if rows is not None:  # the real frames among this rank's rows of the padded batch
+                    chunk, n_rows = chunk[rows], len(range(batch_size)[rows])
                 t0 = time.perf_counter()
-                canvas_b = self.dataset.alloc_image_batch(batch_size)
-                loaded = list(pool.map(load, chunk, canvas_b))
+                canvas_b = self.dataset.alloc_image_batch(n_rows)
+                loaded = list(pool.map(load, chunk or [last], canvas_b))
                 lt["load_wall"] += time.perf_counter() - t0
                 lt["load_cpu"] += sum(cpu for _, cpu in loaded)
                 samples = [s for s, _ in loaded]
-                for j in range(len(samples), batch_size):
+                for j in range(len(samples), n_rows):
                     canvas_b[j] = canvas_b[len(samples) - 1]
-                samples += [samples[-1]] * (batch_size - len(samples))
+                samples += [samples[-1]] * (n_rows - len(samples))
                 t0, c0 = time.perf_counter(), time.thread_time()
                 arrays = self.dataset.stack_samples(samples, image_batch=canvas_b)
                 lt["stack_wall"] += time.perf_counter() - t0
@@ -173,9 +204,13 @@ class Evaluator:
     def run_checkpoint_once(self, step: int, state_dict: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
         """Evaluate the checkpoint of ``step`` (or ``state_dict``, a model
         state dict, in its place): write its predictions, score AP, write
-        ``eval_<step>.json`` and the scalars; returns the result."""
+        ``eval_<step>.json`` and the scalars; returns the result. On a mesh
+        each rank writes its rows' frames and rank 0 scores the whole split
+        (every rank returns rank 0's result); a rank with no rows returns None."""
 
         cfg = self.cfg
+        if self.idle:
+            return None
         if state_dict is None:
             state_dict = ckpt_mod.restore(self.ckpt_dir, step, map_location="cpu")["model"]
         self.model.load_state_dict(state_dict)
@@ -248,7 +283,8 @@ class Evaluator:
             if writer_err:
                 raise writer_err[0]
 
-        prefetch = DevicePrefetcher(self._host_batches(bsz), depth=2, device=self.device,
+        rows = None if self.mesh is None else mesh_mod.batch_rows(self.mesh, bsz)
+        prefetch = DevicePrefetcher(self._host_batches(bsz, rows), depth=2, device=self.device,
                                     transform=lambda item: (pl.RawSample(*item[0]), item[1]))
         inflight: deque = deque()
         if writer is not None:
@@ -280,7 +316,15 @@ class Evaluator:
                 writer.join()
         if writer_err:
             raise writer_err[0]
+        n_here = n
+        if self.mesh is not None:  # every rank's files are written before rank 0 scores
+            dist.barrier(group=self.mesh.group)
+            total = torch.tensor([float(n)], device=multihost.collective_device())
+            dist.all_reduce(total, group=self.mesh.group)
+            n = int(total.item())
         dt = time.time() - t0
+        if self.rank != 0:
+            return self._from_rank0(None)
         wk, lt = prefetch.timings, self.loader_timings
         self.phases.update(load=wk["load"], put=wk["put"])
         print(f"[evaluator] phase breakdown over {dt:.2f}s: consumer wait {ph['wait']:.2f} / dispatch "
@@ -292,8 +336,9 @@ class Evaluator:
         ap = kitti_eval.evaluate_dirs(os.path.join(self.dataset.base, "label_2"), pred_dir,
                                       cfg.model.classes, n_points=cfg.eval.ap_n_points)
         fps = n / max(dt, 1e-9)
-        print(f"[evaluator] step {step}: {n} frames in {dt:.2f}s = {fps:.1f} fps (batch {bsz}, incl. host "
-              f"IO), AP backend: native_cpp")
+        where = "" if self.mesh is None else f" over {self.mesh.n_data} ranks ({n_here} on rank 0)"
+        print(f"[evaluator] step {step}: {n} frames in {dt:.2f}s = {fps:.1f} fps (batch {bsz}{where}, incl. "
+              f"host IO), AP backend: native_cpp")
         result = {"step": step, "num_frames": n, "seconds": dt, "frames_per_sec": fps,
                   "ap_backend": "native_cpp", "ap": ap}
         flat = {"eval_fps": fps}
@@ -304,7 +349,16 @@ class Evaluator:
         self.summary.scalars(step, flat)
         with open(os.path.join(self.workdir, f"eval_{step}.json"), "w") as f:
             json.dump(result, f, indent=2)
-        return result
+        return self._from_rank0(result)
+
+    def _from_rank0(self, value):
+        """Rank 0's ``value`` on every rank of the mesh (as is without one)."""
+
+        if self.mesh is None:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.group)
+        return box[0]
 
     # ------------------------------------------------------------ sweep
     def repeated_checkpoint_run(self, poll_seconds: float = 30.0, max_wait: float = 0.0) -> List[Dict]:
@@ -319,16 +373,19 @@ class Evaluator:
                 done = {int(line) for line in f if line.strip()}
         idle_since = time.time()
         results = []
+        if self.idle:
+            return results
         while True:
-            new = [s for s in ckpt_mod.all_steps(self.ckpt_dir) if s not in done]
+            new = self._from_rank0([s for s in ckpt_mod.all_steps(self.ckpt_dir) if s not in done])
             for step in new:
                 results.append(self.run_checkpoint_once(step))
                 done.add(step)
-                with open(done_path, "a") as f:
-                    f.write(f"{step}\n")
+                if self.rank == 0:
+                    with open(done_path, "a") as f:
+                        f.write(f"{step}\n")
                 idle_since = time.time()
             if not new:
-                if max_wait <= 0 or time.time() - idle_since > max_wait:
+                if self._from_rank0(max_wait <= 0 or time.time() - idle_since > max_wait):
                     break
                 time.sleep(poll_seconds)
         return results

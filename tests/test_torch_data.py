@@ -387,7 +387,9 @@ def test_run_training_cli_on_a_tree(tree, tmp_path, monkeypatch):
                                "--batch_size", "2", "--device", "cpu"])
     assert state.step == 1
     assert os.path.isdir(tmp_path / "exp" / cfg.checkpoint_name / "checkpoints" / "1")
-    with pytest.raises(NotImplementedError, match="multihost"):
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="no world given"):  # --multihost without a world
         run_training.main(["--multihost", "--device", "cpu"])
 
 
@@ -398,7 +400,7 @@ def test_multi_card_trainer_says_it_trains_on_one(tree, tmp_path, monkeypatch, c
     cfg = train_config(tree)
     tr.Trainer(cfg, None, workdir=str(tmp_path / "a"), device="cpu")
     out = capsys.readouterr().out
-    assert out.count("\n") == 1 and "4 cards" in out and "parallel/ is not ported" in out
+    assert out.count("\n") == 1 and "4 cards" in out and "trains on one" in out and "run_training" in out
     no_dp = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_parallel=False))
     tr.Trainer(no_dp, None, workdir=str(tmp_path / "b"), device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
