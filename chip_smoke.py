@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--ell-baseline CU] [--bwd-baseline DIR]
+    python3 chip_smoke.py [--ell-baseline CU] [--a-baseline DIR]
 
 Needs one CUDA card; exits non-zero without one. Phases (any failure exits
 non-zero):
@@ -112,8 +112,8 @@ non-zero):
    backward (A, C, A-bwd, C-bwd twice each) with its peak memory beside the
    same step without remat and phase 6's, its gradients within 2^-6 of each
    parameter's largest of the step without it (same weights, batch,
-   generator seed and noise; deterministic algorithms and kernel A's bf16
-   accumulation, so that the forward gives the same bits twice), beside
+   generator seed and noise; deterministic algorithms and kernel A's
+   default f32 accumulation, so that the forward gives the same bits twice), beside
    the spread of two steps without it.
    Each path prints its launches, latency or step time, busy share (a
    profiled request or step) and peak memory; one ``[model options P1-P5]``
@@ -145,16 +145,29 @@ non-zero):
    (d) the ``Evaluator`` on two ranks over gloo, phase 9's tree and step-4
    checkpoint, swept twice (the first pays the fresh processes' warm-up):
    every prediction row within 1e-3 px (2D box) and 1e-4 (3D box, score)
-   of one process's sweep of that checkpoint (both with kernel A's bf16
-   accumulation under deterministic algorithms), A and C twice a batch in each rank, both APs,
+   of one process's sweep of that checkpoint (both in kernel A's default
+   f32 accumulation under deterministic algorithms), A and C twice a batch in each rank, both APs,
    frames/s beside phase 9's; one ``[parallel/ phase 19]`` JSON line;
-20. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+20. the learning checks' path: 2-frame ``cars_hard`` and ``people`` trees
+   from the port's tree writer, each loaded through ``KittiDataset`` (the
+   cars preset's canvas; ``people_check``'s 96x320 through the host
+   resize), then ``overfit_check.main`` on the card for 150 steps (the
+   unittest preset over its tree, through the host resize, training, the
+   sweep of its 5 checkpoints, the native AP): its AP table, finite losses
+   and parameters, each ``eval_<step>.json``, A and A-bwd launched (C and
+   C-bwd not: exact RPN crops), counts read around exactly the check; one
+   ``[learning path, phase 20]`` JSON line;
+21. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
-the main path's inputs and kernel C on a unit above 48 KB of shared memory;
-phase 6 launches C-bwd twice on each recorded input and requires the same
-bits.
+the main path's inputs and kernel C on a unit above 48 KB of shared memory,
+launches A (f32 accumulation) twice on each recorded input and requires the
+same bits, and requires the same bits of the batch's last 4 frames pooled
+alone; phase 6 launches A-bwd and C-bwd twice on each recorded input and
+requires the same bits. With ``--a-baseline DIR`` phases 2 and 6 also time
+another commit's kernel A and A-bwd (``DIR/sparse_pool_patch.cu``) on the
+same inputs.
 """
 
 from __future__ import annotations
@@ -518,14 +531,39 @@ def check_a(src, rows, cols, vals, t, tol: float, what: str):
     return err, rel
 
 
-def kernel_a_phase(calls, flush):
-    """Kernel A at the two recorded main-path calls (BEV<-FV, FV<-BEV)."""
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
+
+
+def check_a_repeats(src, rows, cols, vals, t, what: str) -> None:
+    """Kernel A in its default f32 accumulation twice on the same inputs:
+    the same bits (rows and weight sums); and the batch's second half pooled
+    alone: the same bits as its frames in the whole batch."""
+
+    (o1, d1), (o2, d2) = (sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True)
+                          for _ in range(2))
+    h = src.shape[0] // 2
+    oh, dh = sparse_pool.sparse_pool_patch_kernel(src[h:], rows[h:], cols[h:], vals[h:], t, True)
+    torch.cuda.synchronize()
+    check(same_bits(o1, o2) and same_bits(d1, d2), f"{what}: kernel A gave other bits on a second launch")
+    check(same_bits(o1[h:], oh) and same_bits(d1[h:], dh),
+          f"{what}: kernel A's rows of frames {h}.. changed with the frames before them")
+    print(f"  A {tuple(src.shape)}->T={t} {what}: two launches the same bits; frames {h}.. alone the "
+          "same bits as in the whole batch")
+
+
+def kernel_a_phase(calls, flush, baseline=None):
+    """Kernel A at the two recorded main-path calls (BEV<-FV, FV<-BEV); with
+    ``baseline`` (``load_baseline``) an earlier kernel A on the same
+    inputs, summed into ``res["earlier_*"]``."""
 
     res = new_result()
     for args in calls:
         src, rows, cols, vals, t = args[:5]
         b, hs, ws, c = src.shape
         print(f"  A {tuple(src.shape)}->T={t}: {patch_pool_stats(rows, vals, t)}")
+        check_a_repeats(src, rows, cols, vals, t, "main path")
         for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
             err, rel = check_a(src.to(dtype), rows, cols, vals, t, tol, "main path")
             print(f"  A {tuple(src.shape)}->T={t} {str(dtype):15s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
@@ -550,6 +588,9 @@ def kernel_a_phase(calls, flush):
 
         kern = timings(kernel_call, flush)
         print(f"  A {tuple(src.shape)} device split per call (L2-warm): {device_split(kernel_call)}")
+        if baseline is not None:
+            earlier(res, f"A {tuple(src.shape)}", lambda: baseline[0](src, rows, cols, vals, t),
+                    sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, t, True)[0], 1e-4, flush)
         plain = median_ms(lambda: sparse_pool.sparse_pool_patch_plain(src, rows, cols, vals, t, True))
         # library: cuSPARSE CSR x dense on the same entries, weight sum as an extra column
         p = rows.shape[1]
@@ -889,45 +930,44 @@ def compare_grad(got, want, tol_rel: float, what: str):
     return err, err / scale, scale
 
 
-def load_bwd_baseline(directory: str):
-    """Build another commit's ``sparse_pool_patch.cu`` and ``group_crop.cu``
-    from ``directory`` (with its ``common.cuh``; the backward C interface
-    ``sparse_pool_patch_bwd_launch`` / ``group_crop_bwd_launch`` of the
-    port, C-bwd's as it was before its fixed point: an f32 scratch buffer
-    that is also the f32 gradient) with the port's flags under other library
-    names, both compiles at once, and return callers of those backward
-    kernels that take the wrappers' arguments: ``(a_bwd, c_bwd)``."""
+def load_baseline(directory: str):
+    """Build another commit's ``sparse_pool_patch.cu`` from ``directory``
+    (with its ``common.cuh``; the C interface of the port's kernel A and
+    A-bwd) with the port's flags under another library name, and return
+    callers of its kernels that take the wrappers' arguments: ``(a, a_bwd)``,
+    A with the weight sums, in f32 accumulation."""
 
     import ctypes
     import hashlib
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    common = open(f"{directory}/common.cuh", "rb").read()
-    procs = {}
-    for name in ("sparse_pool_patch", "group_crop"):
-        path = f"{directory}/{name}.cu"
-        digest = hashlib.sha256(open(path, "rb").read() + common).hexdigest()[:16]
-        lib_path = kernels.BUILD_DIR / f"bwd_baseline_{name}-{digest}.so"
-        procs[name] = (subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path), path],
-                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                       lib_path)
-    libs = {}
-    for name, (proc, lib_path) in procs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"baseline {name}.cu did not build:\n{log}")
-        lib = ctypes.CDLL(str(lib_path))
-        for symbol in ("sparse_pool_patch_bwd_scratch_ints", "sparse_pool_patch_bwd_launch",
-                       "group_crop_bwd_launch"):
-            if symbol in kernels.SIGNATURES[name]:
-                fn = getattr(lib, symbol)
-                fn.argtypes, fn.restype = kernels.SIGNATURES[name][symbol]
-        libs[name] = lib
+    path = f"{directory}/sparse_pool_patch.cu"
+    digest = hashlib.sha256(open(path, "rb").read() + open(f"{directory}/common.cuh", "rb").read())
+    lib_path = kernels.BUILD_DIR / f"baseline_sparse_pool_patch-{digest.hexdigest()[:16]}.so"
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path), path],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"baseline sparse_pool_patch.cu did not build:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for symbol, (args, ret) in kernels.SIGNATURES["sparse_pool_patch"].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = args, ret
+
+    def a(src, rows, cols, vals, t):
+        b, hs, ws, c = src.shape
+        p = rows.shape[1]
+        scratch = rows.new_empty(lib.sparse_pool_patch_scratch_ints(b, p, t, c))
+        out, den = vals.new_empty((b, t, c)), vals.new_empty((b, t))
+        rc = lib.sparse_pool_patch_launch(
+            src.data_ptr(), kernels.DTYPE_CODES[src.dtype], b, hs, ws, c, rows.data_ptr(),
+            cols.data_ptr(), vals.data_ptr(), p, t, 1, 0, scratch.data_ptr(), out.data_ptr(),
+            den.data_ptr(), kernels.stream_ptr(src.get_device()))
+        check(rc == 0, f"baseline A launch failed: CUDA error {rc}")
+        return out
 
     def a_bwd(g, rows, cols, vals, src_hw, den, dtype):
         b, t, c = g.shape
         hs, ws = src_hw
         p = rows.shape[1]
-        lib = libs["sparse_pool_patch"]
         out = g.new_empty((b, hs, ws, c), dtype=dtype)
         scratch = rows.new_empty(lib.sparse_pool_patch_bwd_scratch_ints(b, p, hs * ws, c))
         rc = lib.sparse_pool_patch_bwd_launch(
@@ -937,19 +977,7 @@ def load_bwd_baseline(directory: str):
         check(rc == 0, f"baseline A-bwd launch failed: CUDA error {rc}")
         return out
 
-    def c_bwd(grad, boxes, image_shape, crop_hw, patch, dtype):
-        b, h, w, c = image_shape
-        p, v = boxes.shape[1:3]
-        acc = grad.new_empty((b, h, w, c), dtype=torch.float32)
-        out = acc if dtype == torch.float32 else grad.new_empty((b, h, w, c))
-        rc = libs["group_crop"].group_crop_bwd_launch(
-            grad.data_ptr(), kernels.DTYPE_CODES[dtype], b, h, w, c, boxes.data_ptr(), p, v,
-            int(crop_hw[0]), int(crop_hw[1]), int(patch), acc.data_ptr(), out.data_ptr(),
-            kernels.stream_ptr(grad.get_device()))
-        check(rc == 0, f"baseline C-bwd launch failed: CUDA error {rc}")
-        return out
-
-    return a_bwd, c_bwd
+    return a, a_bwd
 
 
 def c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype) -> str:
@@ -990,13 +1018,12 @@ def c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype) -> str:
             f"{k2 - k1:.2f} + global reduction (int64 atomics) {k0 - k2:.2f}; {rest}")
 
 
-def earlier_bwd(res, label, call, want, flush) -> None:
-    """An earlier backward kernel (``--bwd-baseline``) on the same inputs:
-    its gap to the twin, its times and per-launch split, summed into
-    ``res["earlier_*"]``."""
+def earlier(res, label, call, want, tol: float, flush, held=compare) -> None:
+    """An earlier kernel (``--a-baseline``) on the same inputs: its gap to the
+    twin (``held``: ``compare`` or ``compare_grad``), its times and
+    per-launch split, summed into ``res["earlier_*"]``."""
 
-    dtype = want.dtype
-    err, rel, _ = compare_grad(call(), want, BWD_TOL[dtype], f"earlier kernel {label} {dtype}")
+    err, rel = held(call(), want, tol, f"earlier kernel {label}")[:2]
     base = timings(call, flush)
     base["profiled_us"] = sum(us for _, us in kernel_parts(call))
     print(f"  {label}: earlier kernel {timing_text(base)}, {base['profiled_us']:.2f} us kernel "
@@ -1034,6 +1061,10 @@ def kernel_a_bwd_phase(calls, flush, baseline=None):
                   f"{scale:.3e} (tol {BWD_TOL[dt]:g} rel; a zeroed or halved output fails)")
             if dt == dtype:
                 res["max_abs_err"] = max(res["max_abs_err"], err)
+            runs = [sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dt)
+                    for _ in range(2)]
+            check(same_bits(*runs), f"{label} {dt}: two launches on the same inputs differ")
+        print(f"  {label}: two launches on the same inputs give the same bits, in {dtype} and float32")
 
         def kernel_call():
             return sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dtype)
@@ -1041,9 +1072,9 @@ def kernel_a_bwd_phase(calls, flush, baseline=None):
         kern = timings(kernel_call, flush)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
         if baseline is not None:
-            earlier_bwd(res, label, lambda: baseline(g, rows, cols, vals, src_hw, den, dtype),
-                        sparse_pool.sparse_pool_patch_bwd_plain(g, rows, cols, vals, src_hw, den, dtype),
-                        flush)
+            earlier(res, label, lambda: baseline[1](g, rows, cols, vals, src_hw, den, dtype),
+                    sparse_pool.sparse_pool_patch_bwd_plain(g, rows, cols, vals, src_hw, den, dtype),
+                    BWD_TOL[dtype], flush, compare_grad)
         plain = median_ms(lambda: sparse_pool.sparse_pool_patch_bwd_plain(
             g, rows, cols, vals, src_hw, den, dtype))
         # library: cuSPARSE, the transposed matrix (source cell x target row)
@@ -1078,7 +1109,7 @@ def kernel_a_bwd_phase(calls, flush, baseline=None):
     return res
 
 
-def kernel_c_bwd_phase(calls, flush, baseline=None):
+def kernel_c_bwd_phase(calls, flush):
     """C-bwd at the two recorded calls of one training step (BEV and image
     RPN crops) in the main path's bf16 and in f32, against the twin summing
     in f32; the gap to the twin summing in bf16 (the reference's
@@ -1119,18 +1150,12 @@ def kernel_c_bwd_phase(calls, flush, baseline=None):
             gd = grad.to(dt)
             runs = [crop_resize.crop_and_resize_group_bwd_kernel(gd, boxes, image_shape, crop_hw, patch, dt)
                     for _ in range(2)]
-            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
-            check(torch.equal(runs[0].view(bits), runs[1].view(bits)),
-                  f"{label} {dt}: two launches on the same inputs differ")
+            check(same_bits(*runs), f"{label} {dt}: two launches on the same inputs differ")
         print(f"  {label}: two launches on the same inputs give the same bits, in {dtype} and float32")
         kern = timings(kernel_call, flush)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
         print(f"  {label} phases per call (L2-warm): "
               f"{c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype)}")
-        if baseline is not None:
-            earlier_bwd(res, label, lambda: baseline(grad, boxes, image_shape, crop_hw, patch, dtype),
-                        crop_resize.crop_and_resize_group_bwd_plain(grad, boxes, image_shape, crop_hw,
-                                                                    patch, dtype), flush)
         plain = median_ms(lambda: crop_resize.crop_and_resize_group_bwd_plain(
             grad, boxes, image_shape, crop_hw, patch, dtype))
         _, pu, v, _ = boxes.shape
@@ -1225,7 +1250,7 @@ def profile_train_step(step, batch, gen, step_ms: float):
 LOSS_KEYS = ("total", "rpn_objectness", "rpn_regression", "cls", "reg", "orientation", "flip")
 
 
-def training_phase(device, flush, bwd_baseline=None):
+def training_phase(device, flush, baseline=None):
     """Phase 6; returns the A-bwd and C-bwd results, their launches in the
     Trainer's 6 steps and the median CUDA-event time of steps 2-6."""
 
@@ -1251,9 +1276,8 @@ def training_phase(device, flush, bwd_baseline=None):
     torch.cuda.synchronize()
     check(len(a_bwd) == 2 and len(c_bwd) == 2, "a training step did not reach A-bwd and C-bwd twice")
     print("[backward kernels vs plain] (as above; inputs of one full-width training step, batch 8)")
-    a_base, c_base = load_bwd_baseline(bwd_baseline) if bwd_baseline else (None, None)
-    res_a_bwd = kernel_a_bwd_phase(a_bwd, flush, a_base)
-    res_c_bwd = kernel_c_bwd_phase(c_bwd, flush, c_base)
+    res_a_bwd = kernel_a_bwd_phase(a_bwd, flush, baseline)
+    res_c_bwd = kernel_c_bwd_phase(c_bwd, flush)
     del a_bwd, c_bwd
 
     # the Trainer: 6 steps, counts read around exactly these; its workdir
@@ -2050,10 +2074,8 @@ def options_phase(device, train_peak: float):
     print(f"[P3 training] peak memory {rec['train']['peak_gib']:.2f} GiB; phase 6's (cars, decode "
           f"stride 2, a second model and its Adam state besides) {train_peak:.2f} GiB")
     # the exact crops' plain backward sums bf16 in CUDA's atomic order: the
-    # spread of two steps' gradients on the same inputs, the forward made
-    # to give the same bits twice (kernel A's bf16 accumulation sums in the
-    # points' order; see remat_step)
-    cfg = dataclasses.replace(cfg, sparse_pool=dataclasses.replace(cfg.sparse_pool, accum_dtype="bfloat16"))
+    # spread of two steps' gradients on the same inputs (kernel A and A-bwd
+    # give the same bits twice; see remat_step)
     twin = pl.make_model(cfg, AreaExtents(), device=device).float()
     twin.load_state_dict(model.state_dict())
     del model
@@ -2064,9 +2086,9 @@ def options_phase(device, train_peak: float):
     l1, g1 = step_gradients(twin, cfg, batch, anchors, 0, noise)
     l2, g2 = step_gradients(twin, cfg, batch, anchors, 0, noise)
     spread, where = grad_gap(g1, g2)
-    print(f"[P3 training] two steps on the same inputs (kernel A's bf16 accumulation): total {l1!r} / {l2!r}; "
-          f"gradients differ by up to {spread:.3e} of a parameter's largest ({where}): the exact crops' bf16 "
-          f"index_add_ and A-bwd's f32 sums in the order of CUDA's atomics (information, not a check)")
+    print(f"[P3 training] two steps on the same inputs: total {l1!r} / {l2!r}; gradients differ by up to "
+          f"{spread:.3e} of a parameter's largest ({where}): the exact crops' bf16 index_add_ in the order "
+          f"of CUDA's atomics (information, not a check)")
     rec["train"]["grad_spread"] = spread
     out["P3"] = rec
     del twin, anchors, batch, g1, g2
@@ -2094,14 +2116,13 @@ def remat_step(device, train_peak: float) -> dict:
     The forward must give the same bits twice for the comparison to mean
     anything: the RPN's NMS and the minibatch sampling turn a last-bit
     difference into other proposals and other gradients. So the steps run
-    under deterministic algorithms (cuDNN, the exact crops' ``index_add_``)
-    with kernel A in its bf16 accumulation mode, which sums each row in the
-    points' order (its f32 mode sums in the order its atomics place the
-    points: two steps without remat then differ in their loss at 1e-5)."""
+    under deterministic algorithms (cuDNN, the exact crops' ``index_add_``),
+    with kernel A in its default f32 accumulation, which sums each row in
+    the points' order."""
 
     ext = AreaExtents()
-    plain_cfg = cars_option(sparse_pool=dict(accum_dtype="bfloat16"))
-    remat_cfg = cars_option(sparse_pool=dict(accum_dtype="bfloat16"), backbone=dict(remat=True))
+    plain_cfg = cars_option()
+    remat_cfg = cars_option(backbone=dict(remat=True))
     batch = pl.stack_frames(train_frames(plain_cfg, ext, range(100, 100 + BATCH), N_POINTS), device=device)
     anchors = pl.static_anchor_grid(plain_cfg, ext, device=device)
     g = torch.Generator(device=device).manual_seed(1)
@@ -2153,6 +2174,116 @@ def remat_step(device, train_peak: float) -> dict:
     if prof is not None:
         out.update(busy_ms=prof[0], device_launches=prof[1], busy_share=prof[0] / rec["remat"]["ms"])
     return out
+
+
+# ------------------------------------------------------------ 20. the learning checks' path
+
+LEARN_STEPS = 150
+
+
+def cpu_name() -> str:
+    with open("/proc/cpuinfo") as f:
+        names = [line.split(":", 1)[1].strip() for line in f if line.startswith("model name")]
+    return f"{names[0] if names else 'unknown'} ({os.cpu_count()} cores visible)"
+
+
+def host_resize_ms(root: str) -> dict:
+    """The host resize (``data/pil_resize.py``) of one of the tree's
+    375x1242 images onto the checks' canvases: ms a frame on this host's
+    CPU, median of 20 after a warm-up (the taps are cached by size)."""
+
+    from sparse_pooling_tpu_torch.data.pil_resize import resize_bilinear
+    from sparse_pooling_tpu_torch.native import sample_loader
+
+    img = sample_loader.decode_png(f"{root}/training/image_2/000000.png")
+    out = {}
+    for h, w in ((48, 160), (96, 320)):
+        resize_bilinear(img, h, w)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            resize_bilinear(img, h, w)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f"{img.shape[0]}x{img.shape[1]}->{h}x{w}"] = float(np.median(times))
+    print(f"[learning path] host resize, ms a frame (median of 20) on {cpu_name()}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def learning_phase(device) -> dict:
+    """Phase 20: small ``cars_hard`` and ``people`` trees written by the
+    port's tree writer load through ``KittiDataset`` (the cars preset's
+    384x1248 canvas; ``people_check``'s 96x320 one through the host
+    resize), then ``overfit_check.main`` trains the unittest preset on the
+    card for ``LEARN_STEPS`` steps over its 2-frame tree (the host resize
+    onto 48x160), sweeps its 5 checkpoints and scores them with the native
+    evaluator: every summary's losses finite, the last checkpoint's
+    parameters finite, one ``eval_<step>.json`` per checkpoint, and A and
+    A-bwd launched, C and C-bwd not (the preset's exact RPN crops; counts
+    read around exactly the check)."""
+
+    from sparse_pooling_tpu_torch.data import synthetic
+    from sparse_pooling_tpu_torch.data.dataset import KittiDataset
+    from sparse_pooling_tpu_torch.experiments import overfit_check, people_check
+
+    base = str(kernels.BUILD_DIR.parent / "chip_smoke_learning")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    trees = {}
+    people_args = people_check.parse_args([])
+    for scene, cfg, n_ground, n_obj in (
+            ("cars_hard", cars_pyramid_config(), 12288, 4096),
+            ("people", people_check.build_config(people_args, f"{base}/people", base), 1024, 192)):
+        root = f"{base}/{scene}"
+        synthetic.write_kitti_tree(root, num_frames=2, n_ground=n_ground, n_obj=n_obj, val_frames=(), scene=scene)
+        ds = KittiDataset(dataclasses.replace(cfg.dataset, root=root, split="train"), cfg.model)
+        sample = ds.load_sample("000001", augment_seed=1)
+        n_gt = int(sample.gt_valid.sum())
+        check(sample.image.shape == (cfg.model.image.height, cfg.model.image.width, 3) and n_gt > 0
+              and bool(np.isfinite(sample.points).all()), f"the {scene} tree did not load through the port")
+        trees[scene] = {"gt_boxes": n_gt, "points": int(sample.points_mask.sum()),
+                        "canvas": list(sample.image.shape[:2]), "image_scale": sample.image_scale.tolist()}
+        print(f"[learning path] {scene} tree: frame 000001 loads with {n_gt} boxes of {cfg.model.classes}, "
+              f"{trees[scene]['points']} points, canvas {trees[scene]['canvas']}, image_scale "
+              f"{trees[scene]['image_scale']}")
+    trees_s = time.perf_counter() - t0
+    resize_ms = host_resize_ms(f"{base}/people")
+
+    work = f"{base}/overfit"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = overfit_check.main(["--steps", str(LEARN_STEPS), "--device", str(device), "--workdir", work])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    exp = f"{work}/exp/overfit_check"
+    recs = read_scalars(f"{exp}/summaries")
+    steps = [r["step"] for r in results]
+    check(steps == [LEARN_STEPS // 5 * (k + 1) for k in range(5)], f"overfit_check swept steps {steps}")
+    check(all(math.isfinite(r[k]) for r in recs for k in LOSS_KEYS if k in r),
+          "overfit_check: a non-finite loss in the summaries")
+    final = ckpt_mod.restore(f"{exp}/checkpoints", LEARN_STEPS)["model"]
+    check(all(bool(torch.isfinite(v).all()) for v in final.values() if v.is_floating_point()),
+          "overfit_check: non-finite parameters after the last step")
+    missing = [s for s in steps if not os.path.exists(f"{exp}/eval_{s}.json")]
+    check(not missing, f"overfit_check: eval_<step>.json missing for steps {missing}")
+    # the unittest preset's exact RPN crops take no kernel C
+    for name, ran in (("A", True), ("A-bwd", True), ("C", False), ("C-bwd", False), ("B", False)):
+        check((launches[name] > 0) == ran, f"overfit_check launched kernel {name} {launches[name]} times")
+    step_ms = [r["step_ms"] for r in recs]
+    table = {r["step"]: {m: r["ap"]["Car"][m]["moderate"] for m in ("2d", "bev", "3d")} for r in results}
+    print(f"[learning path] overfit_check --steps {LEARN_STEPS} on the card: {wall:.1f} s with 5 sweeps; "
+          f"summaries at steps {[r['step'] for r in recs]}, total loss {recs[0]['total']:.4f} -> "
+          f"{recs[-1]['total']:.4f}; step {np.median(step_ms):.2f} ms (median, CUDA events); launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    print("[learning path] moderate Car AP by step (2d / bev / 3d): " + "; ".join(
+        f"{s}: {v['2d']:.3f} / {v['bev']:.3f} / {v['3d']:.3f}" for s, v in table.items()))
+    shutil.rmtree(base)
+    return {"trees": trees, "trees_s": trees_s, "host_resize_ms": resize_ms, "overfit_steps": LEARN_STEPS,
+            "overfit_s": wall,
+            "step_ms": float(np.median(step_ms)), "loss_first": recs[0]["total"], "loss_last": recs[-1]["total"],
+            "launches": launches, "ap_moderate": table}
 
 
 # ------------------------------------------------------------ 19. parallel/ on the card
@@ -2518,19 +2649,16 @@ def training_parallel_phase(device, frame_step_ms: float) -> dict:
 def eval_parallel_phase(device, cfg, root: str, workdir: str, sweep: dict) -> dict:
     """19d: the ``Evaluator`` on two ranks over gloo on the one card, phase 9's
     tree and step-4 checkpoint, against one process's sweep of the same
-    checkpoint, both with kernel A's bf16 accumulation under deterministic
-    algorithms: kernel A's f32 mode sums in an order that its atomics
-    decide, and the NMS can turn a last-bit difference into other rows, so
-    two sweeps in that mode need not write the same rows. Frames/s beside
-    phase 9's."""
+    checkpoint, both under deterministic algorithms, with kernel A in its
+    default f32 accumulation (a frame's rows the same bits whatever frames
+    share its batch): the NMS can turn a last-bit difference into other
+    rows. Frames/s beside phase 9's."""
 
     from sparse_pooling_tpu_torch.parallel import launch
     from sparse_pooling_tpu_torch.runtime.evaluator import Evaluator
 
-    mc = cfg.model
-    ecfg = dataclasses.replace(
-        cfg, dataset=dataclasses.replace(cfg.dataset, split="val"),
-        model=dataclasses.replace(mc, sparse_pool=dataclasses.replace(mc.sparse_pool, accum_dtype="bfloat16")))
+    check(cfg.model.sparse_pool.accum_dtype == "float32", "phase 19 (d) runs kernel A's default f32 mode")
+    ecfg = dataclasses.replace(cfg, dataset=dataclasses.replace(cfg.dataset, split="val"))
     one, two = (str(kernels.BUILD_DIR.parent / f"chip_smoke_parallel_eval{k}") for k in ("_one", ""))
     for w in (one, two):
         shutil.rmtree(w, ignore_errors=True)
@@ -2558,7 +2686,7 @@ def eval_parallel_phase(device, cfg, root: str, workdir: str, sweep: dict) -> di
           f"fresh processes' warm-up, {cold['frames_per_sec']:.2f}) against phase 9's one process "
           f"{sweep['frames_per_sec']:.2f} frames/s ({sweep['seconds']:.3f} s) and this phase's one process, cold, "
           f"{ref['frames_per_sec']:.2f}; {wall:.1f} s with the ranks' start")
-    print(f"[parallel d] rows against one process's sweep (kernel A's bf16 accumulation, deterministic "
+    print(f"[parallel d] rows against one process's sweep (kernel A's f32 accumulation, deterministic "
           f"algorithms on both sides): files and classes equal {same}; largest gap 2D box {gap2d:.3e} px "
           f"(tol 1e-3), 3D box and score {gap3d:.3e} (tol 1e-4)")
     print(f"[parallel d] AP two ranks {json.dumps(res['ap'])}; one process {json.dumps(ref['ap'])}")
@@ -2595,7 +2723,7 @@ def parallel_phase(device, kitti_cfg, kitti_root: str, kitti_workdir: str, sweep
     return out
 
 
-def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: str | None = None) -> int:
+def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -2641,7 +2769,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
           f"same after a spin that covers the host's launches; 'host enqueue': host time per "
           f"call over {HOST_BURST} calls back to back, median of 10 such rounds)")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
-    res_a = kernel_a_phase(a_calls, flush)
+    earlier_a = load_baseline(a_baseline) if a_baseline else None
+    res_a = kernel_a_phase(a_calls, flush, earlier_a)
     res_c, windows = kernel_c_phase(c_calls, flush)
     kernel_c_wide_unit(device)
     floor = timings(lambda: torch.cuda._sleep(0))
@@ -2711,7 +2840,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
 
     # 6. training at full width: backward kernels, Trainer, resume, fixed batch
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
-    res_a_bwd, res_c_bwd, train_launches, frame_step_ms, train_peak = training_phase(device, flush, bwd_baseline)
+    res_a_bwd, res_c_bwd, train_launches, frame_step_ms, train_peak = training_phase(device, flush, earlier_a)
     del flush
 
     # 7. one training step on the card against the CPU
@@ -2746,6 +2875,10 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
     shutil.rmtree(kitti_workdir)
     shutil.rmtree(kitti_root)
 
+    # 20. the learning checks' path: the other scenes' trees, overfit_check
+    print("[learning path]")
+    learning = learning_phase(device)
+
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
          "sparse_pooling_tpu/ops/sparse_pool.py:176", launches_a, res_a),
@@ -2774,6 +2907,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, bwd_baseline: st
                    "max_abs_err": people["max_abs_err"], "request_ms": people["request_ms"]}}))
     print("[model options P1-P5] " + json.dumps(options))
     print("[parallel/ phase 19] " + json.dumps(parallel))
+    print("[learning path, phase 20] " + json.dumps(learning))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))
@@ -2806,9 +2940,9 @@ if __name__ == "__main__":
     parser.add_argument("--ell-baseline", metavar="CU", default=None,
                         help="also time this kernel B source with the one-frame C interface "
                              "(the kernel before the batched redesign) on the same work")
-    parser.add_argument("--bwd-baseline", metavar="DIR", default=None,
-                        help="also build this directory's sparse_pool_patch.cu and group_crop.cu "
-                             "(with its common.cuh; the backward C interface of the port) and time "
-                             "their backward kernels A-bwd and C-bwd on the same recorded inputs")
+    parser.add_argument("--a-baseline", metavar="DIR", default=None,
+                        help="also build this directory's sparse_pool_patch.cu (with its common.cuh; "
+                             "the port's C interface of kernels A and A-bwd) and time its A and A-bwd "
+                             "on the same recorded inputs")
     args = parser.parse_args()
-    sys.exit(main(ell_baseline=args.ell_baseline, bwd_baseline=args.bwd_baseline))
+    sys.exit(main(ell_baseline=args.ell_baseline, a_baseline=args.a_baseline))

@@ -38,32 +38,44 @@
 // five rows have none), so the gather splits the work by points, never by
 // rows.
 // (1) count: one thread per live point adds one to its row's int32 count
-//     ([B*T], 282 KB to zero) and keeps the count it saw as its rank.
+//     ([B*T], 282 KB to zero) and keeps the count it saw as its ticket.
 // (2) scan: one block per 8192 counts writes their exclusive prefix; the last
 //     block to finish scans the blocks' totals (one block scanning all the
-//     counts is held to one SM's bandwidth: 14-16 us on an H100).
-// (3) place: each live point writes its row, its window's first pixel and
-//     its four weights to slot offs[row] + rank: the slots hold the rows in
-//     order, each row's points contiguous. A warp per 32 target rows writes
-//     the empty rows' zeros.
-// (4) gather: one block per 128 consecutive slots, a thread per slot. A block
+//     counts is held to one SM's bandwidth: 14-16 us on an H100) and starts
+//     each frame's slots at the next multiple of 128, the gather's block.
+// (3) place: each live point writes its index to dense slot offs[row] +
+//     ticket: the rows back to back, each row's points contiguous but in the
+//     order the atomics of (1) gave them. A warp per 32 target rows writes the
+//     empty rows' zeros.
+// (4) order: a thread per dense slot ranks its point among its row's points
+//     by point index (the count of the row's smaller indices; the lanes of a
+//     row longer than 32 compare against it together, 32 indices a step
+//     shared by shuffles, as rows run to 493 points at the main path's
+//     inputs) and writes its row, its window's first pixel and its four
+//     weights to the final slot: offs[row] + the frame's padding + rank. Each
+//     row's points now lie in point order, whatever order (1) gave them.
+// (5) gather: one block per 128 consecutive slots, a thread per slot. A block
 //     scan numbers the runs of equal rows. Sub-groups of 8 lanes each walk 8
 //     slots, a lane loading 8 channels of each tap (16 bytes of bf16; where C
 //     is no multiple of 8 or a tensor is not 16-byte aligned, 32 lanes walk
 //     32 slots, one channel a lane) and
 //     summing 4 taps x weight in f32 registers with the weight sum beside
-//     them, and add each run into the block's run buffer in shared memory
-//     (a plain store, or a shared atomic where a run spans sub-groups). A
-//     row lying wholly in the block is written out once, divided where the
-//     weight sum exceeds 1e-12. The block's first and last rows, which may
-//     go on in the blocks beside it, go to a carry buffer instead; the last
-//     block of such a row to finish (a ticket per row, after a fence) adds
-//     its blocks' carries in block order and writes it.
-// Slots are placed by atomics, and runs meet by shared atomics, so the order
-// of the sum within a row is not fixed: it varies from run to run
-// (tolerance: f32 rounding of a sum of <= hundreds of terms). The bf16
-// accumulation mode replaces (4) by an ordered gather (below), whose bf16
-// sums follow the points' order.
+//     them, and store each run's sum in the block's run buffer in shared
+//     memory, at the run's first slot. A run that spans sub-groups leaves one
+//     partial sum per sub-group, each at the first of its slots in that
+//     sub-group, and they are added in sub-group order. A row lying wholly in
+//     the block is written out once, divided where the weight sum exceeds
+//     1e-12. The block's first and last rows, which may go on in the blocks
+//     beside it, go to a carry buffer instead; the last block of such a row to
+//     finish (a ticket per row, after a fence) adds its blocks' carries in
+//     block order and writes it.
+// So every f32 sum is taken in an order that the inputs fix: a launch gives
+// the same bits as the last on the same inputs, and a frame's rows do not
+// depend on the other frames of its batch. Against the twin's
+// `index_add_` the order differs (tolerance: f32 rounding of a sum of <=
+// hundreds of terms). The bf16 accumulation mode replaces (5) by a warp per
+// row that walks the ordered slots (below), whose bf16 sums follow the
+// points' order as the reference's do.
 #include "common.cuh"
 
 namespace {
@@ -85,51 +97,103 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 // The scratch buffer, carved in this order; every part starts 16-byte aligned.
+// Kernel A starts each frame's slots at a multiple of kSlots (`pad`, `fend`),
+// so that the gather splits a frame's rows the same way whatever frames come
+// before it in the batch; A-bwd's scan (frames 0) does not.
 struct Scratch {
   int* hist;        // [n_pad] counts per row; zeroed with `done` and `arrive`
-  int* done;        // [4] scan blocks finished, then the live-point total
+  int* done;        // [4] scan blocks finished, the live-point total, the slots' end
   int* arrive;      // [round4(n_blocks)] gather blocks done with a spanning row
   int* local;       // [n_pad] exclusive prefix within each 8192 rows
   int* tile_sum;    // [round4(n_tiles)] counts per 8192 rows
   int* tile_base;   // [round4(n_tiles)] their exclusive prefix
+  int* pad;         // [round4(frames)] slots left empty before each frame's first
+  int* fend;        // [round4(frames)] the slot past each frame's last
   float4* slot_w;   // [n_slots] weights, in slot order
-  int* rank;        // [n_slots] a point's place within its row, -1 if skipped
+  int* rank;        // [n_slots] a point's ticket within its row, -1 if skipped
+  int* slot_key;    // [n_slots] the point at each slot, in ticket order (place)
   int* slot_pix;    // [n_slots] window's first pixel (flat over B*Hs*Ws)
   int* slot_row;    // [n_slots] target row (flat over B*T)
   float* carry;     // [n_blocks, 2, C + 1] a gather block's first and last rows
+  int frames = 0;   // B, or 0: no frame starts aligned
+  int frame_rows = 1;  // T
 
   struct Sizes {
-    long long n_pad, n_tiles, n_slots, n_blocks;
+    long long n_pad, n_tiles, n_slots, n_blocks, n_frames;
   };
-  __host__ static Sizes sizes(long long n_rows, long long n_pts) {
-    const long long n_pad = round_up(n_rows, kScanTile);
-    const long long n_blocks = (n_pts + kSlots - 1) / kSlots;
-    return {n_pad, round_up(n_pad / kScanTile, 4), n_blocks * kSlots + 4, n_blocks};
+  __host__ static Sizes sizes(long long B, long long Tn, long long P) {
+    const long long n_pad = round_up(B * Tn, kScanTile);
+    // each frame may leave up to kSlots - 1 slots empty at its end
+    const long long n_blocks = (B * P + kSlots - 1) / kSlots + B;
+    return {n_pad, round_up(n_pad / kScanTile, 4), n_blocks * kSlots + 4, n_blocks,
+            round_up(B, 4)};
   }
-  __host__ static long long ints(long long n_rows, long long n_pts, int C) {
-    const Sizes z = sizes(n_rows, n_pts);
-    return 2 * z.n_pad + 4 + round_up(z.n_blocks, 4) + 2 * z.n_tiles + 7 * z.n_slots +
-           round_up(z.n_blocks * 2 * (C + 1), 4);
+  __host__ static long long ints(long long B, long long Tn, long long P, int C) {
+    const Sizes z = sizes(B, Tn, P);
+    return 2 * z.n_pad + 4 + round_up(z.n_blocks, 4) + 2 * z.n_tiles + 2 * z.n_frames +
+           8 * z.n_slots + round_up(z.n_blocks * 2 * (C + 1), 4);
   }
   __host__ __device__ Scratch() {}
-  __host__ Scratch(int* base, long long n_rows, long long n_pts) {
-    const Sizes z = sizes(n_rows, n_pts);
+  __host__ Scratch(int* base, long long B, long long Tn, long long P) {
+    const Sizes z = sizes(B, Tn, P);
     hist = base;
     done = hist + z.n_pad;
     arrive = done + 4;
     local = arrive + round_up(z.n_blocks, 4);
     tile_sum = local + z.n_pad;
     tile_base = tile_sum + z.n_tiles;
-    slot_w = reinterpret_cast<float4*>(tile_base + z.n_tiles);
+    pad = tile_base + z.n_tiles;
+    fend = pad + z.n_frames;
+    slot_w = reinterpret_cast<float4*>(fend + z.n_frames);
     rank = reinterpret_cast<int*>(slot_w + z.n_slots);
-    slot_pix = rank + z.n_slots;
+    slot_key = rank + z.n_slots;
+    slot_pix = slot_key + z.n_slots;
     slot_row = slot_pix + z.n_slots;
     carry = reinterpret_cast<float*>(slot_row + z.n_slots);
+    frames = (int)B;
+    frame_rows = (int)Tn;
   }
 };
 
-__device__ __forceinline__ long long slot_of(const Scratch& s, long long row) {
+// A row's first slot: dense (the rows back to back, where the place pass
+// puts the points in ticket order) and final (each frame's rows starting at
+// a multiple of kSlots, where the order pass moves them).
+__device__ __forceinline__ long long dense_of(const Scratch& s, long long row) {
   return (long long)s.tile_base[row / kScanTile] + s.local[row];
+}
+
+__device__ __forceinline__ long long slot_of(const Scratch& s, long long row) {
+  return dense_of(s, row) + (s.frames ? s.pad[row / s.frame_rows] : 0);
+}
+
+// The rank of `mine` among the n keys at keys[base, base + n): the count of
+// smaller keys. Every lane of the warp calls it (dead lanes with live false).
+// A lane of a run of at most 32 walks it alone; the lanes of a longer run
+// walk it together, 32 keys a step, each key loaded once and shared by
+// shuffles, so a run of hundreds costs its warps a few hundred shuffles.
+__device__ __forceinline__ int rank_in_run(const int* __restrict__ keys, long long base, int n,
+                                           int mine, bool live) {
+  const int lane = threadIdx.x & 31;
+  int r = 0;
+  if (live && n <= 32)
+    for (int k = 0; k < n; ++k) r += __ldg(keys + base + k) < mine;
+  unsigned todo = __ballot_sync(kFull, live && n > 32);
+  while (todo) {
+    const int leader = __ffs(todo) - 1;
+    const long long run = __shfl_sync(kFull, base, leader);
+    const int len = __shfl_sync(kFull, n, leader);
+    const bool in_run = live && n > 32 && base == run;
+    int v = lane < len ? __ldg(keys + run + lane) : 0x7fffffff;
+    for (int c = 0; c < len; c += 32) {
+      // the next step's keys load while this step's are compared
+      const int next = c + 32 + lane < len ? __ldg(keys + run + c + 32 + lane) : 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) r += (__shfl_sync(kFull, v, j) < mine) & in_run;
+      v = next;
+    }
+    todo &= ~__ballot_sync(kFull, in_run);
+  }
+  return r;
 }
 
 __device__ __forceinline__ float finish(float acc, float den, int with_den) {
@@ -218,15 +282,36 @@ __global__ void __launch_bounds__(kScanThreads) patch_pool_scan(Scratch s, int n
     carry += total;
   }
   if (threadIdx.x == 0) s.done[1] = carry;
+  if (!s.frames) return;
+  // each frame's first slot at the next multiple of kSlots: the rows before
+  // frame b hold `excl` points, the frames before it `base` slots
+  __syncthreads();  // this block's tile_base writes
+  int base = 0;
+  for (int b0 = 0; b0 < s.frames; b0 += kScanThreads) {
+    const int b = b0 + threadIdx.x;
+    int excl = 0, n = 0;
+    if (b < s.frames) {
+      const long long r0 = (long long)b * s.frame_rows;
+      excl = __ldcg(s.tile_base + r0 / kScanTile) + __ldcg(s.local + r0);
+      const long long r1 = r0 + s.frame_rows;
+      n = (b + 1 < s.frames ? __ldcg(s.tile_base + r1 / kScanTile) + __ldcg(s.local + r1) : carry) -
+          excl;
+    }
+    const int room = (int)round_up(n, kSlots);
+    int total;
+    const int start = base + block_inclusive_scan<kScanThreads / 32>(room, &total) - room;
+    if (b < s.frames) {
+      s.pad[b] = start - excl;
+      s.fend[b] = start + n;
+    }
+    base += total;
+  }
+  if (threadIdx.x == 0) s.done[2] = base;
 }
 
 // Also writes the empty target rows' zeros: a warp per 32 rows.
-// slot_row holds each slot's target row, or with `by_point` its point's
-// index (the ordered bf16 gather sorts a row's slots by it).
-__global__ void patch_pool_place(const int* __restrict__ rows, const int* __restrict__ cols,
-                                 const float* __restrict__ vals, int B, int P, int Hs, int Ws,
-                                 int Tn, int C, Scratch s, int by_point, float* __restrict__ out,
-                                 float* __restrict__ den_out) {
+__global__ void patch_pool_place(const int* __restrict__ rows, int B, int P, int Tn, int C,
+                                 Scratch s, float* __restrict__ out, float* __restrict__ den_out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long n_rows = (long long)B * Tn;
   const long long row0 = (i >> 5) * 32;
@@ -247,16 +332,36 @@ __global__ void patch_pool_place(const int* __restrict__ rows, const int* __rest
   if (i >= (long long)B * P) return;
   const int r = s.rank[i];
   if (r < 0) return;
-  const int b = (int)(i / P);
-  const int c00 = cols[i * 4];
+  s.slot_key[dense_of(s, (i / P) * Tn + rows[i]) + r] = (int)i;
+}
+
+// A thread per dense slot: its point's rank among its row's points by point
+// index gives the final slot it moves to.
+__global__ void patch_pool_order(const int* __restrict__ rows, const int* __restrict__ cols,
+                                 const float* __restrict__ vals, int P, int Hs, int Ws, int Tn,
+                                 Scratch s) {
+  const long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const bool live = q < s.done[1];
+  int i = 0, b = 0, n = 0;
+  long long id = 0, base = 0;
+  if (live) {
+    i = __ldg(s.slot_key + q);
+    b = i / P;
+    id = (long long)b * Tn + rows[i];
+    base = dense_of(s, id);
+    n = s.hist[id];
+  }
+  const int r = rank_in_run(s.slot_key, base, n, i, live);
+  if (!live) return;
+  const int c00 = cols[i * 4LL];
   const int v = floor_div(c00, Ws);
   const int v0 = min(max(v, 0), Hs - (Hs > 1 ? 2 : 1));
   const int u0 = min(max(c00 - v * Ws, 0), Ws - (Ws > 1 ? 2 : 1));
-  const long long id = (long long)b * Tn + rows[i];
   const long long at = slot_of(s, id) + r;
-  s.slot_row[at] = by_point ? (int)i : (int)id;
+  s.slot_row[at] = (int)id;
   s.slot_pix[at] = (b * Hs + v0) * Ws + u0;
-  s.slot_w[at] = make_float4(vals[i * 4], vals[i * 4 + 1], vals[i * 4 + 2], vals[i * 4 + 3]);
+  const float* w = vals + i * 4LL;
+  s.slot_w[at] = make_float4(w[0], w[1], w[2], w[3]);
 }
 
 // One block per kSlots slots; sub-groups of S lanes walk S slots each, W
@@ -269,7 +374,9 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
                   float* __restrict__ out, float* __restrict__ den_out) {
   constexpr int kPass = S * W;
   constexpr int kVec = W > 1 ? 4 : 1;  // channels a thread writes (C % 8 == 0 then)
-  __shared__ float runbuf[kSlots][kPass + 1];  // + the weight sum
+  // a run's sum at its first slot, or a sub-group's part of a run that spans
+  // sub-groups at the first of its slots there; + the weight sum
+  __shared__ float runbuf[kSlots][kPass + 1];
   __shared__ int slot_run[kSlots];
   __shared__ int run_row[kSlots];
   __shared__ int run_lo[kSlots + 1];  // a run's first slot; run_lo[n_runs] = n_here
@@ -283,14 +390,18 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
   const int t = threadIdx.x;
   const long long k0 = blockIdx.x * (long long)kSlots;
   // the slot arrays hold n_blocks * kSlots + 4 entries, so these loads stay
-  // inside them; entries past the live total are masked below
-  const int n_live = s.done[1];
+  // inside them; entries past the frame's last are masked below
+  if (k0 >= s.done[2]) return;  // the grid covers every point, not only the live ones
   const int row = s.slot_row[k0 + t];
   const int pix = s.slot_pix[k0 + t];
   const float4 w = s.slot_w[k0 + t];
-  if (t < 2) edge_s[t] = t == 0 ? (k0 > 0 ? s.slot_row[k0 - 1] : -1) : s.slot_row[k0 + kSlots];
-  if (k0 >= n_live) return;  // the grid covers every point, not only the live ones
-  const int n_here = (int)min((long long)kSlots, n_live - k0);
+  // a frame's slots start at a multiple of kSlots, so the block's first slot
+  // is live and the block holds one frame's
+  const int frame = s.slot_row[k0] / s.frame_rows;
+  const long long frame_first = slot_of(s, (long long)frame * s.frame_rows);
+  const int frame_end = s.fend[frame];
+  if (t < 2) edge_s[t] = t == 0 ? (k0 > frame_first ? s.slot_row[k0 - 1] : -1) : s.slot_row[k0 + kSlots];
+  const int n_here = (int)min((long long)kSlots, frame_end - k0);
   pix_s[t] = pix;
   w_s[t] = w;
   if ((t & 31) == 31) warp_last_row[t >> 5] = row;
@@ -316,8 +427,8 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
     span[0] = first / kSlots;
     span[1] = (first + s.hist[r] - 1) / kSlots;
   }
-  const bool open_before = edge_s[0] == first_row && k0 > 0;
-  const bool open_after = k0 + n_here < n_live && edge_s[1] == last_row;
+  const bool open_before = k0 > frame_first && edge_s[0] == first_row;
+  const bool open_after = k0 + n_here < frame_end && edge_s[1] == last_row;
   const int right = Ws > 1 ? 1 : 0;
   const int down = Hs > 1 ? Ws : 0;
   const int sub_lo = (t / S) * S;
@@ -326,27 +437,18 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
   float* carry = s.carry + blockIdx.x * 2LL * (C + 1);
 
   for (int c0 = 0; c0 < C; c0 += kPass) {
-    for (int e = t; e < n_runs * (kPass + 1); e += kSlots) (&runbuf[0][0])[e] = 0.0f;
-    __syncthreads();
     const int c = c0 + ls * W;
     float acc[W] = {};
     float den = 0.0f;
     int cur = -1;
     auto flush = [&]() {
       if (cur < 0) return;
-      // a run inside this sub-group's slots is its own; others meet by atomics
-      const bool own = run_lo[cur] >= sub_lo && run_lo[cur + 1] <= sub_hi;
+      float* dst = runbuf[max(run_lo[cur], sub_lo)];
       if (c < C) {
 #pragma unroll
-        for (int j = 0; j < W; ++j) {
-          if (own) runbuf[cur][ls * W + j] = acc[j];
-          else atomicAdd(&runbuf[cur][ls * W + j], acc[j]);
-        }
+        for (int j = 0; j < W; ++j) dst[ls * W + j] = acc[j];
       }
-      if (ls == 0) {
-        if (own) runbuf[cur][kPass] = den;
-        else atomicAdd(&runbuf[cur][kPass], den);
-      }
+      if (ls == 0) dst[kPass] = den;
     };
 #pragma unroll 2
     for (int q = sub_lo; q < sub_hi; ++q) {
@@ -383,10 +485,17 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
       const int r = e / (kPass / kVec);
       const int ch = (e - r * (kPass / kVec)) * kVec;
       if (c0 + ch >= C) continue;
+      // the run's parts, one a sub-group it reaches, in sub-group order
+      const int lo = run_lo[r];
       float v[kVec];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) v[j] = runbuf[r][ch + j];
-      const float d = runbuf[r][kPass];
+      for (int j = 0; j < kVec; ++j) v[j] = runbuf[lo][ch + j];
+      float d = runbuf[lo][kPass];
+      for (int q = (lo / S + 1) * S; q < run_lo[r + 1]; q += S) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) v[j] = v[j] + runbuf[q][ch + j];
+        d = d + runbuf[q][kPass];
+      }
       // a row open towards a neighbour goes to carry [0] (first) or [1] (last)
       const int side = r == 0 && open_before ? 0 : (r == n_runs - 1 && open_after ? 1 : -1);
       if (side < 0) {
@@ -439,11 +548,9 @@ patch_pool_gather(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s, i
 // the four summed in f32 and rounded, the weight sum of each point in f32
 // and rounded, and each row's sums taken in bf16, rounding after every add,
 // in the order of the points (XLA's scatter-add adds a segment's entries in
-// index order). A warp per target row: it ranks the row's slots by point
-// index (each rank counts the row's smaller indices), then walks them in
-// that order, a lane per channel. The result does not depend on the order
-// the atomics placed the slots in. A row's rank pass is quadratic in its
-// points; this mode is off the main path (its default is float32).
+// index order). A warp per target row walks its slots, which the order pass
+// left in point order, a lane per channel. This mode is off the main path
+// (its default is float32).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 patch_pool_gather_bf16(const T* __restrict__ src, int Hs, int Ws, int C, Scratch s,
@@ -455,18 +562,10 @@ patch_pool_gather_bf16(const T* __restrict__ src, int Hs, int Ws, int C, Scratch
   const int n = s.hist[row];
   if (n == 0) return;  // the place pass wrote the empty row's zeros
   const long long base = slot_of(s, row);
-  int* order = s.rank + base;  // free once placed: the row's slots in point order
-  for (int q = lane; q < n; q += 32) {
-    const int mine = s.slot_row[base + q];
-    int k = 0;
-    for (int q2 = 0; q2 < n; ++q2) k += s.slot_row[base + q2] < mine;
-    order[k] = q;
-  }
-  __syncwarp();
   const auto bf = [](float x) { return __bfloat162float(__float2bfloat16_rn(x)); };
   float den = 0.0f;  // every lane takes the weight sum
   for (int k = 0; k < n; ++k) {
-    const float4 x = s.slot_w[base + order[k]];
+    const float4 x = s.slot_w[base + k];
     den = bf(den + bf(((x.x + x.y) + x.z) + x.w));
   }
   const int right = Ws > 1 ? 1 : 0;
@@ -474,7 +573,7 @@ patch_pool_gather_bf16(const T* __restrict__ src, int Hs, int Ws, int C, Scratch
   for (int c = lane; c < C; c += 32) {
     float acc = 0.0f;
     for (int k = 0; k < n; ++k) {
-      const long long q = base + order[k];
+      const long long q = base + k;
       const float4 x = s.slot_w[q];
       const T* p = src + (long long)s.slot_pix[q] * C + c;
       float g = bf(bf(spt::to_f32(p[0])) * bf(x.x));
@@ -504,8 +603,8 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
   const long long n_rows = (long long)B * Tn;
   const long long n_pts = (long long)B * P;
   if (n_rows == 0 || C == 0) return 0;
-  const Scratch::Sizes z = Scratch::sizes(n_rows, n_pts);
-  const Scratch s(scratch, n_rows, n_pts);
+  const Scratch::Sizes z = Scratch::sizes(B, Tn, P);
+  const Scratch s(scratch, B, Tn, P);
 
   if (n_pts == 0) {
     if (den_out != nullptr) {
@@ -525,8 +624,12 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // a thread per point, and a warp per 32 target rows
   const long long place_blocks = max(pt_blocks, (n_rows + kThreads - 1) / kThreads);
-  patch_pool_place<<<(unsigned)place_blocks, kThreads, 0, stream>>>(
-      rows, cols, vals, B, P, Hs, Ws, Tn, C, s, accum_bf16, out, den_out);
+  patch_pool_place<<<(unsigned)place_blocks, kThreads, 0, stream>>>(rows, B, P, Tn, C, s, out,
+                                                                     den_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // a thread per dense slot: the grid covers every point, the live ones hold slots
+  patch_pool_order<<<(unsigned)pt_blocks, kThreads, 0, stream>>>(rows, cols, vals, P, Hs, Ws, Tn,
+                                                                  s);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (accum_bf16) {
     patch_pool_gather_bf16<T><<<(unsigned)((n_rows * 32 + kThreads - 1) / kThreads), kThreads, 0,
@@ -567,12 +670,17 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
 // (1) count: a thread per point, its four corners' live entries (a non-zero
 //     weight, both ids in range, a row with den > 1e-12) counted per cell;
 //     the lanes of a warp that share a cell take one atomic between them
-//     (`__match_any_sync`) and keep their ranks;
+//     (`__match_any_sync`) and keep their tickets;
 // (2) A's two-level scan of the counts;
-// (3) place: a thread per point writes each live entry's cell and its (row
-//     of g, weight over the row's weight sum) pair, 12 bytes, at
-//     offs[cell] + rank; a warp per 32 cells writes the unreached cells' zeros;
-// (4) gather: a group of G lanes walks 32 consecutive slots, 16 bytes of g's
+// (3) place: a thread per point writes each live entry's index (4 p + k) at
+//     offs[cell] + ticket; a warp per 32 cells writes the unreached cells'
+//     zeros;
+// (4) order: a thread per slot ranks its entry among its cell's by entry
+//     index (A's rank, the lanes of a long cell together: cells run to 1133
+//     entries) and writes its cell and its (row of g, weight over the row's
+//     weight sum) pair, 12 bytes, at offs[cell] + rank: each cell's entries
+//     in entry order, whatever order the atomics of (1) gave them;
+// (5) gather: a group of G lanes walks 32 consecutive slots, 16 bytes of g's
 //     row a lane where C is a multiple of 64 (G = 16), else one channel a
 //     lane (G = 32). A lane reads one slot's entry and the group shares them
 //     by shuffles, so each lane issues the loads of 8 rows before it sums
@@ -581,8 +689,8 @@ int launch(const void* src_v, int B, int Hs, int Ws, int C, const int* rows, con
 //     before or after goes to a carry buffer; the last of its cell's chunks
 //     to finish (a ticket per cell, after a fence) adds the carries in chunk
 //     order and writes the cell.
-// Slots are placed by atomics, so the order of a cell's sum varies from run
-// to run (f32 rounding).
+// Every f32 sum is taken in an order the inputs fix (entry order within a
+// chunk, chunks in order), so a launch gives the same bits as the last.
 //
 // What holds it back on an H100 at the main path's shapes: the gather
 // (26-29 us) reads one 256-byte f32 row of g per live entry, 92 MB from the
@@ -599,7 +707,8 @@ constexpr int kBatch = 8;   // rows of g a lane loads before it sums them
 // out as A's, so that A's scan runs on `scan`.
 struct BwdScratch {
   Scratch scan;
-  int4* rank;      // [n_pts] each corner entry's place within its cell, -1 if dead
+  int4* rank;      // [n_pts] each corner entry's ticket within its cell, -1 if dead
+  int* slot_key;   // [n_slots] the entry (4 p + k) at each slot, in ticket order
   int* slot_cell;  // [n_slots] source cell (flat over B*Hs*Ws)
   int2* slot_rw;   // [n_slots] row of g (flat over B*T), the weight's bits
   float* carry;    // [n_chunks, 2, C] a chunk's runs open before (0) and after (1)
@@ -615,7 +724,7 @@ struct BwdScratch {
   __host__ static long long ints(long long n_cells, long long n_pts, int C) {
     const Sizes z = sizes(n_cells, n_pts);
     return 2 * z.n_pad + 4 + round_up(z.n_chunks, 4) + 2 * z.n_tiles + 4 * n_pts +
-           3 * z.n_slots + round_up(z.n_chunks * 2 * C, 4);
+           4 * z.n_slots + round_up(z.n_chunks * 2 * C, 4);
   }
   __host__ BwdScratch(int* base, long long n_cells, long long n_pts) {
     const Sizes z = sizes(n_cells, n_pts);
@@ -626,7 +735,8 @@ struct BwdScratch {
     scan.tile_sum = scan.local + z.n_pad;
     scan.tile_base = scan.tile_sum + z.n_tiles;
     rank = reinterpret_cast<int4*>(scan.tile_base + z.n_tiles);
-    slot_cell = reinterpret_cast<int*>(rank + n_pts);
+    slot_key = reinterpret_cast<int*>(rank + n_pts);
+    slot_cell = slot_key + z.n_slots;
     slot_rw = reinterpret_cast<int2*>(slot_cell + z.n_slots);
     carry = reinterpret_cast<float*>(slot_rw + z.n_slots);
   }
@@ -676,10 +786,8 @@ __global__ void patch_pool_bwd_count(const int* __restrict__ rows, const int* __
 
 // Also writes the unreached cells' zeros: a warp per 32 cells.
 template <typename O>
-__global__ void patch_pool_bwd_place(const int* __restrict__ rows, const int* __restrict__ cols,
-                                     const float* __restrict__ vals,
-                                     const float* __restrict__ den, int B, int P, int Tn,
-                                     int n_src, int C, BwdScratch s, O* __restrict__ out) {
+__global__ void patch_pool_bwd_place(const int* __restrict__ cols, int B, int P, int n_src, int C,
+                                     BwdScratch s, O* __restrict__ out) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long n_cells = (long long)B * n_src;
   const long long cell0 = (i >> 5) * 32;
@@ -701,17 +809,35 @@ __global__ void patch_pool_bwd_place(const int* __restrict__ rows, const int* __
   const int4 r4 = s.rank[i];
   if ((r4.x & r4.y & r4.z & r4.w) < 0) return;  // every corner dead
   const long long b = i / P;
-  const long long row = b * Tn + rows[i];
   const int rk[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (rk[k] < 0) continue;
-    const long long cell = b * n_src + cols[i * 4 + k];
-    const long long at = slot_of(s.scan, cell) + rk[k];
-    const float w = den != nullptr ? vals[i * 4 + k] / den[row] : vals[i * 4 + k];
-    s.slot_cell[at] = (int)cell;
-    s.slot_rw[at] = make_int2((int)row, __float_as_int(w));
+  for (int k = 0; k < 4; ++k)
+    if (rk[k] >= 0) s.slot_key[slot_of(s.scan, b * n_src + cols[i * 4 + k]) + rk[k]] = (int)(i * 4 + k);
+}
+
+// A thread per slot: its entry's rank among its cell's entries by entry
+// index gives the slot it moves to.
+__global__ void patch_pool_bwd_order(const int* __restrict__ rows, const int* __restrict__ cols,
+                                     const float* __restrict__ vals,
+                                     const float* __restrict__ den, int P, int Tn, int n_src,
+                                     BwdScratch s) {
+  const long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const bool live = q < s.scan.done[1];
+  int e = 0, n = 0;
+  long long b = 0, cell = 0, base = 0;
+  if (live) {
+    e = __ldg(s.slot_key + q);
+    b = (e >> 2) / P;
+    cell = b * n_src + cols[e];
+    base = slot_of(s.scan, cell);
+    n = s.scan.hist[cell];
   }
+  const int r = rank_in_run(s.slot_key, base, n, e, live);
+  if (!live) return;
+  const long long row = b * Tn + rows[e >> 2];
+  const float w = den != nullptr ? vals[e] / den[row] : vals[e];
+  s.slot_cell[base + r] = (int)cell;
+  s.slot_rw[base + r] = make_int2((int)row, __float_as_int(w));
 }
 
 // G lanes a group, W channels a lane, G * W channels a pass; a group per
@@ -840,8 +966,12 @@ int launch_bwd(const float* g, const float* den, int B, int Tn, int C, const int
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // a thread per point, and a warp per 32 cells
   const long long place_blocks = max(pt_blocks, (n_cells + kThreads - 1) / kThreads);
-  patch_pool_bwd_place<O><<<(unsigned)place_blocks, kThreads, 0, stream>>>(
-      rows, cols, vals, den, B, P, Tn, (int)n_src, C, s, out);
+  patch_pool_bwd_place<O><<<(unsigned)place_blocks, kThreads, 0, stream>>>(cols, B, P, (int)n_src,
+                                                                          C, s, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // a thread per slot: the grid covers every corner entry, the live ones hold slots
+  patch_pool_bwd_order<<<(unsigned)((4 * n_pts + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      rows, cols, vals, den, P, Tn, (int)n_src, s);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (C % 64 == 0 && spt::aligned(g, 16) && spt::aligned(out, 16))
     patch_pool_bwd_gather<O, 16, 4><<<(unsigned)((z.n_chunks * 16 + kThreads - 1) / kThreads),
@@ -856,7 +986,7 @@ int launch_bwd(const float* g, const float* den, int B, int Tn, int C, const int
 
 // int32 scratch the wrapper allocates (16-byte aligned): see Scratch.
 extern "C" long long sparse_pool_patch_scratch_ints(int B, int P, int Tn, int C) {
-  return Scratch::ints((long long)B * Tn, (long long)B * P, C);
+  return Scratch::ints(B, Tn, P, C);
 }
 
 // dtype: 0 = float32 source, 1 = bfloat16 source. accum_bf16: 0 sums in f32

@@ -7,11 +7,13 @@ and pads to static shapes; BEV maps, sparse matrices and anchors are built on
 the device (``ops.bev_device``, ``ops.sparse_build``, ``ops.anchors``).
 
 Images decode with the native loader (``native/sample_loader``), straight
-into the caller's canvas. The reference's PIL paths are not ported: a raw
-image larger than the canvas, or ``image.device_resize=False`` (both resize
-on the host), raise ``NotImplementedError``. Augmentation, subsampling and
-shuffling make the JAX package's numpy draws in its order, so both packages
-yield equal arrays for the same tree, seed and epoch.
+into the caller's canvas where the graph resizes them
+(``image.device_resize`` and a raw image that fits the canvas). Otherwise
+the raw image is resized on the host after augmentation, byte-equal to the
+reference's PIL resize (``data/pil_resize.py``), and ``image_scale`` is 1.
+Augmentation, subsampling and shuffling make the JAX package's numpy draws
+in its order, so both packages yield equal arrays for the same tree, seed
+and epoch.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from sparse_pooling_tpu_torch.data import augmentation as aug
 from sparse_pooling_tpu_torch.data import calib as calib_mod
 from sparse_pooling_tpu_torch.data import labels as labels_mod
 from sparse_pooling_tpu_torch.data import pointcloud
+from sparse_pooling_tpu_torch.data.pil_resize import resize_bilinear
 from sparse_pooling_tpu_torch.native import sample_loader as native_loader
 
 MAX_GT_BOXES = 32
@@ -88,10 +91,18 @@ class KittiDataset:
     def _path(self, folder: str, sid: str, ext: str) -> str:
         return os.path.join(self.base, folder, sid + ext)
 
+    def _on_canvas(self, raw_hw) -> bool:
+        """Whether the raw image goes on the canvas as it is, for the graph
+        to resize (else the host resizes it)."""
+
+        mc = self.model_cfg.image
+        return mc.device_resize and raw_hw[0] <= mc.height and raw_hw[1] <= mc.width
+
     def _raw_image(self, sid: str, image_out: Optional[np.ndarray]):
-        """(canvas or None, raw image view, raw (h, w)): the decoded raw image
-        placed top left in ``image_out`` (or a fresh zeroed canvas), or, for
-        an image cache hit without ``image_out``, the cached array alone.
+        """(canvas or None, raw image, raw (h, w)): the decoded raw image
+        placed top left in ``image_out`` (or a fresh zeroed canvas) where it
+        stays on the canvas; else, or for an image cache hit without
+        ``image_out``, the raw image alone.
 
         ``dataset.image_cache_dir`` keeps each decoded raw image as ``.npy``
         on first touch (written once, atomically: loader threads may race on
@@ -104,17 +115,17 @@ class KittiDataset:
             if os.path.exists(cache_path):
                 cached = np.load(cache_path, mmap_mode="r")
                 rh, rw = cached.shape[:2]
-                if rh > mc.height or rw > mc.width:
-                    raise NotImplementedError(
-                        f"{sid}: raw image {rh}x{rw} exceeds the {mc.height}x{mc.width} canvas; "
-                        "the host resize onto a smaller canvas is not ported")
-                if image_out is None:
+                if image_out is None or not self._on_canvas((rh, rw)):
                     return None, np.array(cached), (rh, rw)
                 image_out[:rh, :rw] = cached
                 return image_out, image_out[:rh, :rw], (rh, rw)
-        canvas, (rh, rw) = native_loader.decode_png_canvas(
-            self._path("image_2", sid, ".png"), mc.height, mc.width, out=image_out)
-        img = canvas[:rh, :rw]
+        path = self._path("image_2", sid, ".png")
+        if self._on_canvas(native_loader.png_size(path)):
+            canvas, (rh, rw) = native_loader.decode_png_canvas(path, mc.height, mc.width, out=image_out)
+            img = canvas[:rh, :rw]
+        else:
+            canvas, img = None, native_loader.decode_png(path)
+            rh, rw = img.shape[:2]
         if cache_path is not None:
             os.makedirs(self.cfg.image_cache_dir, exist_ok=True)
             tmp = cache_path + f".tmp{os.getpid()}.npy"
@@ -125,19 +136,18 @@ class KittiDataset:
 
     def load_sample(self, sid: str, augment_seed: Optional[int] = None,
                     image_out: Optional[np.ndarray] = None) -> HostSample:
-        """Load + canvas-place + (optionally) augment + pad one frame.
+        """Load + canvas-place (or host-resize) + (optionally) augment + pad
+        one frame.
 
         ``augment_seed`` enables the deterministic flip and PCA jitter; None
         disables augmentation (evaluation). ``image_out``: an optional
-        ZERO-FILLED [H, W, 3] u8 canvas the image is decoded into in place
-        (typically a row of a batch array, so assembling a batch copies no
-        image bytes); the returned ``HostSample.image`` is then that array.
+        ZERO-FILLED [H, W, 3] u8 canvas the image is decoded (or resized)
+        into in place (typically a row of a batch array, so assembling a
+        batch copies no image bytes); the returned ``HostSample.image`` is
+        then that array.
         """
 
         mc = self.model_cfg
-        if not mc.image.device_resize:
-            raise NotImplementedError(
-                "image.device_resize=False resizes on the host (PIL in the reference); not ported")
         cal = calib_mod.read_calibration(self._path("calib", sid, ".txt"))
         canvas, img, raw_hw = self._raw_image(sid, image_out)
         pts = native_loader.load_points(
@@ -170,12 +180,23 @@ class KittiDataset:
                 canvas[: raw_hw[0], : raw_hw[1]] = img
 
         # the raw image sits top left of the canvas and the graph resamples
-        # it (ops.image_resize); P2 scales with the canvas/raw ratio
+        # it (ops.image_resize), or the host resizes it onto the canvas (the
+        # graph's resize is then the identity); P2 scales with the
+        # canvas/raw ratio either way
         sy = mc.image.height / raw_hw[0]
         sx = mc.image.width / raw_hw[1]
-        if canvas is None:
-            canvas = np.zeros((mc.image.height, mc.image.width, 3), np.uint8)
-            canvas[: raw_hw[0], : raw_hw[1]] = img
+        if self._on_canvas(raw_hw):
+            if canvas is None:
+                canvas = np.zeros((mc.image.height, mc.image.width, 3), np.uint8)
+                canvas[: raw_hw[0], : raw_hw[1]] = img
+            image_scale = np.array([sy, sx], np.float32)
+        else:
+            resized = resize_bilinear(np.ascontiguousarray(img), mc.image.height, mc.image.width)
+            if image_out is not None:
+                image_out[:] = resized
+                resized = image_out
+            canvas = resized
+            image_scale = np.ones((2,), np.float32)
         p2 = cal.p2.astype(np.float32).copy()
         p2[0] *= sx
         p2[1] *= sy
@@ -203,7 +224,7 @@ class KittiDataset:
             gt_boxes_3d=gt_boxes,
             gt_valid=gt_valid,
             gt_classes=gt_cls,
-            image_scale=np.array([sy, sx], np.float32),
+            image_scale=image_scale,
             raw_image_hw=raw_hw,
         )
 

@@ -12,6 +12,8 @@ loader thread overlaps the training step.
   the top left of a zeroed [H, W, 3] u8 canvas: Python reads the chunks and
   inflates the IDAT stream with ``zlib``, the library undoes the row filters
   straight into the canvas. Pixel-equal to a PIL decode of the same file.
+  :func:`decode_png` decodes the raw [h, w, 3] image alone (for the host
+  resize, ``data/pil_resize.py``); :func:`png_size` reads the header only.
 - :func:`load_points`: ``data.pointcloud.load_points_filtered`` in one pass,
   the same f32 operations in the same order.
 """
@@ -108,8 +110,8 @@ def decode_png_canvas(path: str, canvas_h: int, canvas_w: int,
 
     ``out``: a caller's ZERO-FILLED C-contiguous canvas of that shape (e.g.
     one row of a batch array), written in place; only the raw image's region
-    is written. A raw image larger than the canvas raises
-    ``NotImplementedError``: resizing it on the host is not ported."""
+    is written. A raw image larger than the canvas raises ``ValueError``
+    (``decode_png`` takes it whole, for the host resize)."""
 
     if out is None:
         out = np.zeros((canvas_h, canvas_w, 3), np.uint8)
@@ -117,14 +119,36 @@ def decode_png_canvas(path: str, canvas_h: int, canvas_w: int,
         raise ValueError(f"out must be a C-contiguous uint8 [{canvas_h}, {canvas_w}, 3] array")
     h, w, channels, raw = read_png(path)
     if h > canvas_h or w > canvas_w:
-        raise NotImplementedError(
-            f"{path}: raw image {h}x{w} exceeds the {canvas_h}x{canvas_w} canvas; the host "
-            "resize onto a smaller canvas is not ported")
+        raise ValueError(f"{path}: raw image {h}x{w} exceeds the {canvas_h}x{canvas_w} canvas")
+    _unfilter(path, raw, h, w, channels, out)
+    return out, (h, w)
+
+
+def decode_png(path: str) -> np.ndarray:
+    """Decode ``path`` into a new [h, w, 3] u8 array (its own size)."""
+
+    h, w, channels, raw = read_png(path)
+    out = np.empty((h, w, 3), np.uint8)
+    _unfilter(path, raw, h, w, channels, out)
+    return out
+
+
+def _unfilter(path: str, raw: bytes, h: int, w: int, channels: int, out: np.ndarray) -> None:
     scratch = np.frombuffer(bytearray(raw), np.uint8)  # unfiltered in place
-    rc = library().spt_unfilter_png(scratch, h, w, channels, out, canvas_h, canvas_w)
+    rc = library().spt_unfilter_png(scratch, h, w, channels, out, out.shape[0], out.shape[1])
     if rc != 0:
         raise ValueError(f"{path}: malformed PNG rows (rc {rc})")
-    return out, (h, w)
+
+
+def png_size(path: str) -> Tuple[int, int]:
+    """(height, width) from a PNG's header, without decoding it."""
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
 
 
 def load_points(

@@ -124,7 +124,9 @@ def sparse_pool_patch_kernel(
     """Kernel A on CUDA tensors -> ([B, T, C] f32, the weight sums [B, T]
     f32 or None), as ``sparse_pool_patch_plain``: sums in f32, or with
     ``accum_dtype="bfloat16"`` in bf16 in the points' order (the ordered
-    gather). The backward reads the weight sums the kernel writes."""
+    gather). Either way each row's sum is taken in an order its frame's
+    inputs fix: the same bits every launch, whatever the other frames of
+    the batch. The backward reads the weight sums the kernel writes."""
 
     what = "sparse_pool_patch"
     if accum_dtype not in ("float32", "bfloat16"):
@@ -208,7 +210,7 @@ def sparse_pool_patch_bwd_kernel(
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Kernel A-bwd on CUDA tensors -> [B, Hs, Ws, C] in ``dtype``, summed in
-    f32 and rounded once."""
+    f32 in the entries' order and rounded once: the same bits every launch."""
 
     what = "sparse_pool_patch_bwd"
     tensors = (grad_out, rows, cols, vals) if den is None else (grad_out, rows, cols, vals, den)

@@ -5,9 +5,9 @@ The port's counterpart of the JAX package's ``dryrun_multichip``.
 ``dryrun_multichip(n)`` starts ``n`` CPU ranks over gloo (data ``n / 2`` x
 model 2), trains ``Trainer`` for a few steps on a synthetic KITTI tree with
 the ``unittest`` preset, and holds the sharded run's losses against one
-process's over the same tree and seed at rtol 1e-5. The ``unittest``
-preset's 48x160 canvas is widened to 384x1248 to hold the tree's 375x1242
-images (the host resize onto a smaller canvas is not ported).
+process's over the same tree and seed at rtol 1e-5. The tree's 375x1242
+images reach the ``unittest`` preset's 48x160 canvas through the host
+resize (``data/pil_resize.py``), as in the JAX package's dry run.
 
     python -m sparse_pooling_tpu_torch.parallel.dryrun [N]
 """
@@ -29,14 +29,13 @@ LOSS_RTOL = 1e-5
 def dryrun_config(root: str, experiments_dir: str, n_data: int, n_model: int):
     """The ``unittest`` preset over the tree at ``root``: global batch
     ``n_data`` (one frame a data rank), ``model_parallel`` ``n_model``, a
-    summary and a checkpoint every step, the canvas widened for the tree."""
+    summary and a checkpoint every step."""
 
     from sparse_pooling_tpu_torch.configs import unittest_config
 
     cfg = unittest_config(dataset_root=root)
     return dataclasses.replace(
         cfg, experiments_dir=experiments_dir,
-        model=dataclasses.replace(cfg.model, image=dataclasses.replace(cfg.model.image, height=384, width=1248)),
         train=dataclasses.replace(cfg.train, batch_size=n_data, model_parallel=n_model, data_parallel=True,
                                   summary_interval=1, checkpoint_interval=1),
     )

@@ -9,9 +9,12 @@ numpy arithmetic in its order), except where noted:
 * ``pointcloud`` and ``augmentation``: bit for bit, including the seeded
   subsample and the PCA jitter's draws;
 * ``write_kitti_tree``: text and ``.bin`` files byte-equal, PNGs equal once
-  decoded (the port encodes with zlib, the JAX package with PIL);
+  decoded (the port encodes with zlib, the JAX package with PIL), for every
+  scene;
 * ``KittiDataset``: ``load_sample`` and ``batches`` over two epochs with
   shuffle and augmentation, without augmentation, and with the image cache;
+  the host resize (a canvas smaller than the raw image, ``device_resize``
+  off) against JAX's PIL resize;
 * ``DevicePrefetcher`` on the CPU: order, ``close`` mid-epoch, a loader
   error reaching the consumer (its card test, which needs no JAX, is in
   tests/test_torch_port.py);
@@ -192,8 +195,30 @@ def test_write_kitti_tree_matches_jax(tmp_path):
         a = np.asarray(PIL_Image.open(pt["image"]))
         assert a.shape == (375, 1242, 3) and a.dtype == np.uint8
         np.testing.assert_array_equal(a, np.asarray(PIL_Image.open(pj["image"])))
-    with pytest.raises(NotImplementedError, match="cars"):
-        t_syn.make_frame(0, scene="people")
+    with pytest.raises(ValueError, match="scene"):
+        t_syn.make_frame(0, scene="trucks")
+
+
+@pytest.mark.parametrize("scene", ["cars_hard", "people", "people_hard"])
+def test_write_kitti_tree_scenes_match_jax(tmp_path, scene):
+    """The other scenes: hard scenes (occlusion, truncation, clutter) and
+    the people street scene, every file byte-equal but the PNGs, which
+    decode to the same pixels."""
+
+    jroot, troot = str(tmp_path / "j"), str(tmp_path / "t")
+    kw = dict(num_frames=3, n_ground=2000, n_obj=400, val_frames=(1,), scene=scene)
+    j_syn.write_kitti_tree(jroot, **kw)
+    t_syn.write_kitti_tree(troot, **kw)
+    for split in ("train", "val", "trainval"):
+        assert filecmp.cmp(f"{jroot}/{split}.txt", f"{troot}/{split}.txt", shallow=False)
+    for i in range(3):
+        pj, pt = _paths(jroot, f"{i:06d}"), _paths(troot, f"{i:06d}")
+        for kind in ("calib", "velo", "label", "plane"):
+            assert filecmp.cmp(pj[kind], pt[kind], shallow=False), kind
+        np.testing.assert_array_equal(np.asarray(PIL_Image.open(pt["image"])),
+                                      np.asarray(PIL_Image.open(pj["image"])))
+    types = {line.split()[0] for i in range(3) for line in open(_paths(troot, f"{i:06d}")["label"])}
+    assert types & ({"Pedestrian", "Cyclist"} if scene.startswith("people") else {"Car"})
 
 
 # ---------------------------------------------------------------- KittiDataset
@@ -260,14 +285,36 @@ def test_batches_with_the_image_cache_match_jax(tree, tmp_path):
     _assert_samples_equal(tds.load_sample(sid, augment_seed=3), jds.load_sample(sid, augment_seed=3))
 
 
-def test_unported_host_resize_raises(tree):
-    tcfg = data_config(tree)
-    small = dataclasses.replace(tcfg.model, image=dataclasses.replace(tcfg.model.image, height=192, width=624))
-    with pytest.raises(NotImplementedError, match="canvas"):
-        t_dataset.KittiDataset(tcfg.dataset, small).load_sample("000000")
-    host = dataclasses.replace(tcfg.model, image=dataclasses.replace(tcfg.model.image, device_resize=False))
-    with pytest.raises(NotImplementedError, match="device_resize"):
-        t_dataset.KittiDataset(tcfg.dataset, host).load_sample("000000")
+@pytest.mark.parametrize("image,cache", [
+    (dict(height=192, width=624), False),  # the raw image does not fit the canvas
+    (dict(height=96, width=320), True),  # ... and through the image cache
+    (dict(device_resize=False), False),  # it fits, but the host resizes it
+])
+def test_host_resize_matches_jax(tree, tmp_path, image, cache):
+    """Where the host resizes (a raw image larger than the canvas, or
+    ``device_resize`` off), ``load_sample`` equals JAX's: the resized canvas
+    byte for byte (PIL's bilinear there), P2 scaled, ``image_scale`` ones,
+    with and without augmentation and a caller's canvas."""
+
+    kw = dict(image_cache_dir=str(tmp_path / "cache")) if cache else {}
+    tcfg = data_config(tree, **kw)
+    tcfg = dataclasses.replace(tcfg, model=dataclasses.replace(
+        tcfg.model, image=dataclasses.replace(tcfg.model.image, **image)))
+    jcfg = jax_config(tcfg)
+    ext = tcfg_mod.AreaExtents()
+    tds = t_dataset.KittiDataset(tcfg.dataset, tcfg.model, ext)
+    jds = j_dataset.KittiDataset(jcfg.dataset, jcfg.model, _extents(ext))
+    h, w = tcfg.model.image.height, tcfg.model.image.width
+    for sid in tds.sample_ids[:3]:
+        for seed in (None, t_dataset.augment_seed(0, 1, sid)):
+            for _ in range(2 if cache else 1):  # the first pass writes the cache, the second reads it
+                got = tds.load_sample(sid, augment_seed=seed)
+                _assert_samples_equal(got, jds.load_sample(sid, augment_seed=seed))
+                np.testing.assert_array_equal(got.image_scale, np.ones(2, np.float32))
+        out = np.zeros((h, w, 3), np.uint8)
+        got = tds.load_sample(sid, image_out=out)
+        assert got.image is out
+        _assert_samples_equal(got, jds.load_sample(sid, image_out=np.zeros((h, w, 3), np.uint8)))
 
 
 # ---------------------------------------------------------------- DevicePrefetcher

@@ -9,9 +9,9 @@ The same seeded inputs go two ways:
 * on the card (marker ``cuda``), each CUDA kernel against its twin in f32
   and bf16, with chip_smoke.py's tolerances: A 1e-4, B 1e-5 (f32) or 1e-2
   (bf16), C 1e-5 (f32) or 2e-2 (bf16), relative to max(|twin|, 1). A sums a
-  row's terms in an order that atomics decide; B and C round once in bf16
-  from f32 sums taken in another order than the twin's (C's twin also
-  rounds after each of its two products).
+  row's terms in point order, the twin's ``index_add_`` in its own; B and C
+  round once in bf16 from f32 sums taken in another order than the twin's
+  (C's twin also rounds after each of its two products).
 
 A: target rows of 250, 40 and 24 points (whose points the gather's
 sub-groups share) among many empty rows, ids -1, T and T + 7 (dropped or
@@ -42,7 +42,10 @@ gradients that are not 16-byte aligned, and C-bwd at the main path's two
 views (512 units a frame of 32 variants, spread over the map or all on one
 window). C-bwd also runs twice on the same inputs in each of these cases,
 and the two gradients must be the same bits (its sums meet in an integer
-fixed point, so the order of its atomics does not show).
+fixed point, so the order of its atomics does not show); so do A (f32
+accumulation) and A-bwd, over A's cases and at the main path's two calls
+(8 frames of 16384 points, rows of hundreds of points): both put each row's
+or cell's terms in index order before they sum them.
 
 JAX is imported inside a fixture, so this file runs where JAX or flax is
 missing: there the CPU parity tests skip and the card tests still run
@@ -619,3 +622,105 @@ def test_kernel_c_bwd_is_deterministic_on_card(cuda, case, dtype):
     assert first.abs().max() > 0
     assert torch.equal(first.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                        second.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+# Kernel A's and A-bwd's main-path shapes: BEV<-FV pools the 1/8 image map
+# into the 88x100 BEV lattice, FV<-BEV the BEV map into the 48x156 image
+# lattice; 16384 points a frame, 8 frames, 64 channels.
+A_MAIN = {"bev_from_fv": (48, 156, 88 * 100), "fv_from_bev": (88, 100, 48 * 156)}  # Hs, Ws, T
+A_MAIN_BATCH, A_MAIN_POINTS, A_MAIN_C = 8, 16384, 64
+
+
+def _a_main_inputs(view: str):
+    """Seeded inputs at a main-path call's shapes, skewed as the path's are:
+    about 30% of the points padding, a quarter of the rest spread
+    geometrically over the rows (its first rows take ~40 points), one row
+    of ~400, the others uniform."""
+
+    hs, ws, t = A_MAIN[view]
+    b, p, c = A_MAIN_BATCH, A_MAIN_POINTS, A_MAIN_C
+    rng = np.random.RandomState(hs + ws)
+    src = rng.randn(b, hs, ws, c).astype(np.float32)
+    c00 = rng.randint(0, hs * ws - ws - 1, (b, p))
+    cols = np.stack([c00, c00 + 1, c00 + ws, c00 + ws + 1], -1).astype(np.int32)
+    vals = rng.rand(b, p, 4).astype(np.float32)
+    vals[rng.rand(b, p) < 0.3] = 0.0
+    rows = rng.randint(0, t, (b, p))
+    order = rng.permutation(t)  # which rows the geometric spread favours
+    rows[:, :4000] = order[np.minimum(rng.geometric(0.01, (b, 4000)) - 1, t - 1)]
+    rows[:, 4000:4550] = order[0]  # ~400 live points: the path's longest row has 493
+    return src, rows.astype(np.int32), cols, vals, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("divide", [True, False])
+@pytest.mark.parametrize("case", sorted(A_CASES) + sorted(A_MAIN))
+def test_kernel_a_is_deterministic_on_card(cuda, case, divide, dtype):
+    """Kernel A in its default f32 accumulation: two launches on the same
+    inputs give the same bits (rows and weight sums), at every edge case and
+    at the main path's two calls, where rows take hundreds of points that
+    span the gather's sub-groups and blocks."""
+
+    if case in A_CASES:
+        src, rows, cols, vals = _a_inputs(case)
+        t = A_TARGETS
+    else:
+        src, rows, cols, vals, t = _a_main_inputs(case)
+    x = torch.from_numpy(src).to(cuda, dtype)
+    r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
+    (out1, den1), (out2, den2) = (sparse_pool.sparse_pool_patch_kernel(x, r, cl, v, t, divide)
+                                  for _ in range(2))
+    want, _ = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, t, divide)
+    torch.cuda.synchronize()
+    _assert_rel(out1, want, 1e-4)
+    assert out1.abs().max() > 0
+    assert torch.equal(out1.view(torch.int32), out2.view(torch.int32))
+    if divide:
+        assert torch.equal(den1.view(torch.int32), den2.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("divide", [True, False])
+@pytest.mark.parametrize("case", sorted(A_CASES) + ["hot_cell", "one_cell"] + sorted(A_MAIN))
+def test_kernel_a_bwd_is_deterministic_on_card(cuda, case, divide, dtype):
+    """A-bwd: two launches on the same inputs give the same bits, at every
+    edge case (a cell of 1200 entries, every corner in one cell) and at the
+    main path's two calls."""
+
+    if case in A_MAIN:
+        src, rows, cols, vals, t = _a_main_inputs(case)
+    else:
+        src, rows, cols, vals = _a_bwd_case(case, 3)
+        t = A_TARGETS
+    r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
+    x = torch.from_numpy(src).to(cuda, dtype)
+    _, den = sparse_pool.sparse_pool_patch_plain(x, r, cl, v, t, divide)
+    g = torch.from_numpy(_a_grad(src, t)).to(cuda)
+    first, second = (sparse_pool.sparse_pool_patch_bwd_kernel(g, r, cl, v, src.shape[1:3], den, dtype)
+                     for _ in range(2))
+    want = sparse_pool.sparse_pool_patch_bwd_plain(g, r, cl, v, src.shape[1:3], den, dtype)
+    torch.cuda.synchronize()
+    _assert_rel(first, want, BWD_TOL[dtype])
+    assert first.abs().max() > 0
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(first.view(bits), second.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", sorted(A_MAIN))
+def test_kernel_a_frame_rows_do_not_depend_on_the_batch_on_card(cuda, view):
+    """A frame's pooled rows are the same bits whether it is pooled in a batch
+    of 8 or with only the frames after it (each frame's slots start at a
+    gather block), as the evaluator's data ranks need: a rank pools half of
+    one process's batch."""
+
+    src, rows, cols, vals, t = _a_main_inputs(view)
+    x = torch.from_numpy(src).to(cuda, torch.bfloat16)
+    r, cl, v = (torch.from_numpy(a).to(cuda) for a in (rows, cols, vals))
+    whole, whole_den = sparse_pool.sparse_pool_patch_kernel(x, r, cl, v, t, True)
+    tail, tail_den = sparse_pool.sparse_pool_patch_kernel(x[3:], r[3:], cl[3:], v[3:], t, True)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[3:].view(torch.int32), tail.view(torch.int32))
+    assert torch.equal(whole_den[3:].view(torch.int32), tail_den.view(torch.int32))

@@ -5,7 +5,8 @@
 * ``decode_png_canvas`` against a PIL decode: the JAX package's PNGs, the
   port's own, and PNGs built here whose rows use all five filter types, in
   RGB and RGBA; images larger than the canvas, kinds it does not read and
-  damaged files raise;
+  damaged files raise; ``decode_png`` (the raw image alone) and
+  ``png_size`` against PIL;
 * a build that fails raises with the compiler's output.
 """
 
@@ -87,6 +88,20 @@ def test_decode_matches_pil(trees, writer):
         assert not out[0].any()
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_raw_decode_and_size_match_pil(trees, writer):
+    """``decode_png`` (the raw image alone, for the host resize) and
+    ``png_size`` (the header only) against PIL."""
+
+    for i in range(3):
+        png = _frame(trees[writer], f"{i:06d}")[2]
+        pil = np.asarray(PIL_Image.open(png).convert("RGB"))
+        assert nl.png_size(png) == pil.shape[:2] == (375, 1242)
+        raw = nl.decode_png(png)
+        assert raw.shape == pil.shape and raw.dtype == np.uint8 and raw.flags.c_contiguous
+        np.testing.assert_array_equal(raw, pil)
+
+
 def _png(img: np.ndarray, filters, color: int) -> bytes:
     """PNG bytes of ``img`` whose row y uses filter ``filters[y % len]``."""
 
@@ -139,8 +154,8 @@ def test_decode_undoes_every_row_filter(tmp_path, channels, color, filters):
 
 def test_decode_refuses_what_it_does_not_read(trees, tmp_path):
     png = _frame(trees["port"], "000000")[2]
-    with pytest.raises(NotImplementedError, match="canvas"):
-        nl.decode_png_canvas(png, 375, 1241)
+    with pytest.raises(ValueError, match="exceeds the 375x1241 canvas"):
+        nl.decode_png_canvas(png, 375, 1241)  # decode_png takes it whole
     with pytest.raises(ValueError, match="uint8"):
         nl.decode_png_canvas(png, 384, 1248, out=np.zeros((384, 1248, 3), np.float32))
     gray = tmp_path / "gray.png"
