@@ -14,7 +14,10 @@ non-zero):
    call, and for kernel and library call also their device time (after a
    spin that covers the host's launches), their device time with the L2
    flushed before each run, and the host's enqueue time; the bound (bytes
-   over 3.35 TB/s vs operations over 67 TFLOP/s f32); A's live-point share
+   over 3.35 TB/s vs operations over 67 TFLOP/s f32); each kernel's host
+   time through its ``torch.ops.spt`` operator beside the raw launcher's
+   (and kernel A's through a ``torch.library.custom_op``, the route the
+   port does not take); A's live-point share
    and points per target row, and C's window gather alone (TPU kernels 3
    and 4); the device time of an empty kernel, the floor of any launch;
    kernel B at one frame, at the probe's shapes and at batch 8 (request 0's
@@ -38,7 +41,8 @@ non-zero):
    cluster: the backward kernels A-bwd and C-bwd against their twins at the
    shapes of one real training step (inputs recorded from it), timed as the
    forwards are, against ``torch.sparse.mm`` with the transposed matrix and
-   ``F.grid_sample``'s input gradient; ``Trainer.train(6)`` with a
+   ``F.grid_sample``'s input gradient, each through its operator beside
+   the raw launcher (host time); ``Trainer.train(6)`` with a
    checkpoint at step 6 (counts read around exactly these 6 steps: A, C,
    A-bwd and C-bwd twice a step), every step's losses, grad norm, sampled
    positives and time, peak memory, a torch.profiler split of one more step,
@@ -64,7 +68,8 @@ non-zero):
    step evaluated, one prediction file per val frame, A and C twice a
    batch (counts read around exactly the sweep), every AP finite, the
    native AP equal to the numpy oracle's to 1e-12, ``eval_<step>.json``
-   written; frames/s with host IO and the phase breakdown; one profiled
+   written, the prediction image of the first val frame written and drawn
+   on; frames/s with host IO and the phase breakdown; one profiled
    eval batch (device busy, launches, A's and C's device time beside phase
    3's profiled request); then ``run_evaluation --ckpt_step 4`` and
    ``run_inference`` on two frames;
@@ -151,13 +156,25 @@ non-zero):
 20. the learning checks' path: 2-frame ``cars_hard`` and ``people`` trees
    from the port's tree writer, each loaded through ``KittiDataset`` (the
    cars preset's canvas; ``people_check``'s 96x320 through the host
-   resize), then ``overfit_check.main`` on the card for 150 steps (the
+   resize), ``runtime.preprocess.gen_mini_batches`` (2 spawned workers)
+   and ``demos.show_predictions`` (labels drawn as predictions and ground
+   truth) on each tree, then ``overfit_check.main`` on the card for 150 steps (the
    unittest preset over its tree, through the host resize, training, the
    sweep of its 5 checkpoints, the native AP): its AP table, finite losses
    and parameters, each ``eval_<step>.json``, A and A-bwd launched (C and
    C-bwd not: exact RPN crops), counts read around exactly the check; one
    ``[learning path, phase 20]`` JSON line;
-21. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+21. the serving export: ``runtime.export.export_inference`` of the cars
+   preset at full width, batch 8, on the card (phase 3's seeded weights and
+   requests, padded to the serving layout), its export seconds, graph size
+   and the kernels' operators in it; the program within 1e-5 of the live
+   pipeline in this process; saved (MB), then a fresh process loads it with
+   ``load_serving_fn`` and serves the 3 requests after a warm-up: within
+   1e-5 of the live detections, A and C launched twice each a request,
+   each request's latency beside the live pipeline's at the same size and
+   phase 3's; one ``[serving export, phase 21]`` JSON line;
+22. one ``{"kernels": [...]}`` line (with each kernel's ``op_host_us``
+   beside ``host_us``), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Phase 2 also holds kernel A's bf16 accumulation mode against its twin at
@@ -174,6 +191,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -181,6 +199,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -308,7 +327,7 @@ def add_bound(res: dict, n_bytes: float, flops: float) -> float:
 
 
 def new_result() -> dict:
-    return {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "cold_ms": 0.0, "host_us": 0.0,
+    return {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "cold_ms": 0.0, "host_us": 0.0, "op_host_us": 0.0,
             "plain_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
             "library_host_us": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
 
@@ -322,6 +341,30 @@ def add_times(res: dict, kernel: dict, plain: float, library: dict) -> None:
     res["library_ms"] += library["ms"]
     res["library_device_ms"] += library["device_ms"]
     res["library_host_us"] += library["host_us"]
+
+
+def op_host(res: dict, label: str, op_call, raw_call) -> None:
+    """The host time of one call through the ``torch.ops.spt`` operator (the
+    dispatcher, its Python kernels, the launcher) beside the raw launcher's,
+    both ``host_us`` back to back; the operator's summed into
+    ``res["op_host_us"]``."""
+
+    raw, op = host_us(raw_call), host_us(op_call)
+    res["op_host_us"] += op
+    print(f"  {label}: host per call through the operator {op:.1f} us, the raw launcher {raw:.1f} us "
+          f"(+{op - raw:.1f} us)")
+
+
+@functools.cache
+def custom_op_a():
+    """Kernel A registered by ``torch.library.custom_op``: the higher-level
+    route, which the port does not take (``kernels.OPS`` is a
+    ``torch.library.Library``), timed for the record beside ``op_host``."""
+
+    return torch.library.custom_op(
+        "spt_probe::sparse_pool_patch",
+        lambda src, rows, cols, vals, t: sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True),
+        mutates_args=(), schema="(Tensor src, Tensor rows, Tensor cols, Tensor vals, SymInt t) -> (Tensor, Tensor)")
 
 
 def nbytes(*ts) -> int:
@@ -587,6 +630,11 @@ def kernel_a_phase(calls, flush, baseline=None):
             return sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, t, True)
 
         kern = timings(kernel_call, flush)
+        op_host(res, f"A {tuple(src.shape)}", lambda: torch.ops.spt.sparse_pool_patch(
+            src, rows, cols, vals, t, True, "float32"), kernel_call)
+        custom_us = host_us(lambda: custom_op_a()(src, rows, cols, vals, t))
+        print(f"  A {tuple(src.shape)}: host per call through torch.library.custom_op (not the port's "
+              f"route) {custom_us:.1f} us")
         print(f"  A {tuple(src.shape)} device split per call (L2-warm): {device_split(kernel_call)}")
         if baseline is not None:
             earlier(res, f"A {tuple(src.shape)}", lambda: baseline[0](src, rows, cols, vals, t),
@@ -664,6 +712,8 @@ def kernel_c_phase(calls, flush):
             return crop_resize.crop_and_resize_group_kernel(img, boxes, crop_hw, patch)
 
         kern = timings(kernel_call, flush)
+        op_host(res, f"C {tuple(img.shape)}", lambda: torch.ops.spt.group_crop(img, boxes, *crop_hw, patch),
+                kernel_call)
         plain = median_ms(lambda: crop_resize.crop_and_resize_group_plain(img, boxes, crop_hw, patch))
         # library: grid_sample (bilinear, align_corners) at the window-clamped coords
         _, pu, v, _ = boxes.shape
@@ -786,6 +836,7 @@ def ell_timing(res, src, idx, w, label, flush, baseline=None):
         return ell_sparse_pool.sparse_pool_ell_kernel(src, idx, w)
 
     kern = timings(kernel_call, flush)
+    op_host(res, f"B {label}", lambda: torch.ops.spt.ell_sparse_pool(src, idx, w), kernel_call)
     kern["profiled_us"] = sum(us for _, us in kernel_parts(kernel_call))
     plain = median_ms(lambda: sparse_pool.sparse_pool_ell_batch_plain(src, idx, w))
     # library: cuSPARSE CSR x dense over the flattened batch (row b*T + t, column b*S + idx)
@@ -1070,6 +1121,8 @@ def kernel_a_bwd_phase(calls, flush, baseline=None):
             return sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, src_hw, den, dtype)
 
         kern = timings(kernel_call, flush)
+        op_host(res, label, lambda: torch.ops.spt.sparse_pool_patch_bwd(g, rows, cols, vals, hs, ws, den, dtype),
+                kernel_call)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
         if baseline is not None:
             earlier(res, label, lambda: baseline[1](g, rows, cols, vals, src_hw, den, dtype),
@@ -1153,6 +1206,8 @@ def kernel_c_bwd_phase(calls, flush):
             check(same_bits(*runs), f"{label} {dt}: two launches on the same inputs differ")
         print(f"  {label}: two launches on the same inputs give the same bits, in {dtype} and float32")
         kern = timings(kernel_call, flush)
+        op_host(res, label, lambda: torch.ops.spt.group_crop_bwd(grad, boxes, h, w, *crop_hw, patch, dtype),
+                kernel_call)
         print(f"  {label} device split per call (L2-warm): {device_split(kernel_call)}")
         print(f"  {label} phases per call (L2-warm): "
               f"{c_bwd_phases(grad, boxes, image_shape, crop_hw, patch, dtype)}")
@@ -1643,6 +1698,15 @@ def eval_phase(device, cfg, root: str, workdir: str, serving) -> dict:
     check(gap <= 1e-12, f"the native AP differs from the numpy oracle's by {gap:.3e}")
     with open(f"{workdir}/eval_{KITTI_STEPS}.json") as f:
         check(json.load(f)["ap"] == ap, "eval_<step>.json does not hold the sweep's AP")
+    png = f"{workdir}/eval_summaries/images/predictions_{val_ids[0]}_{KITTI_STEPS:08d}.png"
+    check(os.path.exists(png), f"the sweep wrote no prediction image {png}")
+    from sparse_pooling_tpu_torch.native.sample_loader import decode_png
+
+    drawn = decode_png(png)
+    raw = decode_png(f"{ev.dataset.base}/image_2/{val_ids[0]}.png")
+    check(drawn.shape == raw.shape and bool((drawn != raw).any()), "the prediction image draws nothing")
+    print(f"[eval] prediction image {os.path.relpath(png, workdir)}: {drawn.shape[1]}x{drawn.shape[0]}, "
+          f"{int((drawn != raw).any(-1).sum())} pixels drawn (predictions and ground truth)")
     print(f"[eval] step {KITTI_STEPS}: {res['num_frames']} val frames ({n_rows} KITTI rows at score >= "
           f"{ecfg.eval.kitti_score_threshold:g}) in {res['seconds']:.3f} s = {res['frames_per_sec']:.2f} "
           f"frames/s at batch {BATCH} with host IO (loader threads {ecfg.eval.num_workers}, prefetch 2, "
@@ -2210,6 +2274,52 @@ def host_resize_ms(root: str) -> dict:
     return out
 
 
+def offline_tools(base: str, cfgs: dict) -> dict:
+    """Phase 20's host tools on each 2-frame tree: ``gen_mini_batches``
+    (2 spawned workers, which see no card) writes one cache a frame with an
+    entry of IoU and GT index per kept anchor and class; ``show_predictions``
+    draws the frames' labels as predictions (and as ground truth) into an
+    image and a BEV PNG each, which must differ from the raw image and be
+    the BEV lattice's size."""
+
+    from sparse_pooling_tpu_torch.configs.config import BevConfig
+    from sparse_pooling_tpu_torch.data.dataset import KittiDataset
+    from sparse_pooling_tpu_torch.demos import show_predictions
+    from sparse_pooling_tpu_torch.native.sample_loader import decode_png
+    from sparse_pooling_tpu_torch.runtime import preprocess
+
+    out = {}
+    for scene, cfg in cfgs.items():
+        root = f"{base}/{scene}"
+        ds = KittiDataset(dataclasses.replace(cfg.dataset, root=root, split="train"), cfg.model)
+        t0 = time.perf_counter()
+        paths = preprocess.gen_mini_batches(ds, f"{root}/mini_batches", num_workers=2)
+        mb_s = time.perf_counter() - t0
+        check(len(paths) == len(ds), f"{scene}: {len(paths)} mini-batch caches for {len(ds)} frames")
+        kept = []
+        for path in paths:
+            data = np.load(path)
+            n = data["anchor_indices"].shape[0]
+            check(n > 0 and all(data[c].shape == (n, 2) for c in cfg.model.classes),
+                  f"{scene}: {os.path.basename(path)} holds {sorted(data.files)}")
+            kept.append(n)
+        t0 = time.perf_counter()
+        show_predictions.main(["--dataset_root", root, "--pred_dir", f"{root}/training/label_2",
+                               "--out_dir", f"{root}/shown", "--draw_gt"])
+        show_s = time.perf_counter() - t0
+        bev_hw = BevConfig().padded_hw(AreaExtents())
+        for sid in ds.sample_ids:
+            img = decode_png(f"{root}/shown/{sid}_image.png")
+            check(bool((img != decode_png(f"{ds.base}/image_2/{sid}.png")).any()),
+                  f"{scene} {sid}: show_predictions drew nothing on the image")
+            check(decode_png(f"{root}/shown/{sid}_bev.png").shape[:2] == tuple(bev_hw),
+                  f"{scene} {sid}: the BEV image is not the lattice's size")
+        out[scene] = {"anchors_kept": kept, "gen_mini_batches_s": mb_s, "show_predictions_s": show_s}
+        print(f"[learning path] {scene}: gen_mini_batches {mb_s:.2f} s ({kept} anchors kept a frame); "
+              f"show_predictions {show_s:.2f} s ({2 * len(ds)} PNGs)")
+    return out
+
+
 def learning_phase(device) -> dict:
     """Phase 20: small ``cars_hard`` and ``people`` trees written by the
     port's tree writer load through ``KittiDataset`` (the cars preset's
@@ -2248,6 +2358,8 @@ def learning_phase(device) -> dict:
               f"{trees[scene]['image_scale']}")
     trees_s = time.perf_counter() - t0
     resize_ms = host_resize_ms(f"{base}/people")
+    offline = offline_tools(base, {"cars_hard": cars_pyramid_config(),
+                                   "people": people_check.build_config(people_args, f"{base}/people", base)})
 
     work = f"{base}/overfit"
     torch.cuda.synchronize()
@@ -2280,10 +2392,169 @@ def learning_phase(device) -> dict:
     print("[learning path] moderate Car AP by step (2d / bev / 3d): " + "; ".join(
         f"{s}: {v['2d']:.3f} / {v['bev']:.3f} / {v['3d']:.3f}" for s, v in table.items()))
     shutil.rmtree(base)
-    return {"trees": trees, "trees_s": trees_s, "host_resize_ms": resize_ms, "overfit_steps": LEARN_STEPS,
+    return {"trees": trees, "trees_s": trees_s, "host_resize_ms": resize_ms, "offline": offline,
+            "overfit_steps": LEARN_STEPS,
             "overfit_s": wall,
             "step_ms": float(np.median(step_ms)), "loss_first": recs[0]["total"], "loss_last": recs[-1]["total"],
             "launches": launches, "ap_moderate": table}
+
+
+# ------------------------------------------------------------ 21. the serving export
+
+EXPORT_TOL = 1e-5  # the artifact's detections against the live pipeline's (absolute)
+
+# A fresh process that loads the artifact and serves the saved requests: it
+# imports the export module (which registers the kernels' operators) and
+# reads the kernels' launch counts, no model code of its own. Prints one
+# JSON line; the detections go to argv[3].
+EXPORT_CHILD = """
+import json, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from sparse_pooling_tpu_torch.runtime import export
+from sparse_pooling_tpu_torch.models.pipeline import RawSample
+from sparse_pooling_tpu_torch.ops import crop_resize, sparse_pool
+t0 = time.perf_counter()
+fn = export.load_serving_fn(sys.argv[1])
+load_s = time.perf_counter() - t0
+requests = [RawSample(*(t.cuda() for t in r)) for r in torch.load(sys.argv[2])]
+t0 = time.perf_counter()
+fn(requests[0])
+torch.cuda.synchronize()
+warm_s = time.perf_counter() - t0
+outs, ms, launches = [], [], []
+for batch in requests:
+    a0, c0 = sparse_pool.sparse_pool_patch_kernel.launches, crop_resize.crop_and_resize_group_kernel.launches
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    det = fn(batch)
+    end.record()
+    end.synchronize()
+    ms.append(start.elapsed_time(end))
+    launches.append({"A": sparse_pool.sparse_pool_patch_kernel.launches - a0,
+                     "C": crop_resize.crop_and_resize_group_kernel.launches - c0})
+    outs.append({k: v.cpu() for k, v in det.items()})
+torch.save(outs, sys.argv[3])
+print(json.dumps({"load_s": load_s, "warm_s": warm_s, "request_ms": ms, "launches": launches}))
+"""
+
+
+def detection_gap(got: dict, want: dict, what: str) -> float:
+    """Largest absolute difference of two detection dicts (boxes, scores;
+    the valid masks must be equal)."""
+
+    check(sorted(got) == sorted(want), f"{what}: keys {sorted(got)} against {sorted(want)}")
+    check(torch.equal(got["valid"].cpu(), want["valid"].cpu()), f"{what}: other valid detections")
+    return max(float((got[k].cpu().double() - want[k].cpu().double()).abs().max()) for k in want
+               if want[k].is_floating_point())
+
+
+def export_phase(device, phase3_ms: list, phase3_launches: dict) -> dict:
+    """Phase 21: ``runtime.export.export_inference`` of the cars preset at
+    full width, batch 8, on the card (phase 3's seeded weights), saved with
+    ``save_exported``; the program in this process against the live
+    pipeline on phase 3's requests (their gt fields padded to the serving
+    layout: points padded to ``max_points``, gt to ``MAX_GT_BOXES``, and
+    timed live at that size); then a fresh process loads the file with
+    ``load_serving_fn``
+    and serves the 3 requests after one warm-up: each within
+    ``EXPORT_TOL`` of the live detections, A and C launched twice each a
+    request; latency beside phase 3's."""
+
+    from sparse_pooling_tpu_torch.data.dataset import MAX_GT_BOXES
+    from sparse_pooling_tpu_torch.runtime import export as export_mod
+
+    cfg = cars_pyramid_config()
+    ext = AreaExtents()
+    model = pl.make_model(cfg.model, ext, device=device)
+    weights.init_like_flax(model, seed=0)
+    anchors = pl.static_anchor_grid(cfg.model, ext, device=device)
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1]) + t.shape[2:])], 1)
+
+    # the serving layout: points padded to max_points (masked), gt to MAX_GT_BOXES
+    p_max = cfg.model.sparse_pool.max_points
+    requests = []
+    for r in range(REQUESTS):
+        batch = make_batch(cfg.model, r, device)[1]
+        requests.append(batch._replace(
+            points=pad(batch.points, p_max), points_mask=pad(batch.points_mask, p_max),
+            gt_boxes_3d=pad(batch.gt_boxes_3d, MAX_GT_BOXES), gt_valid=pad(batch.gt_valid, MAX_GT_BOXES),
+            gt_classes=pad(batch.gt_classes, MAX_GT_BOXES)))
+    run_request(model, requests[0], anchors, cfg.model, ext)  # warm-up at the padded size
+    live, live_ms = [], []
+    for batch in requests:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        live.append(run_request(model, batch, anchors, cfg.model, ext)[1])
+        end.record()
+        end.synchronize()
+        live_ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = export_mod.export_inference(cfg, model, batch_size=BATCH, extents=ext, device=device)
+    export_s = time.perf_counter() - t0
+    # the graph and its subgraphs (the serving path's no_grad regions)
+    calls = [n for gm in ep.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+             for n in gm.graph.nodes if n.op == "call_function"]
+    n_nodes = len(calls)
+    ops = sorted({str(n.target) for n in calls if str(n.target).startswith("spt.")})
+    check(ops == ["spt.group_crop.default", "spt.sparse_pool_patch.default"],
+          f"the exported graph calls the kernels' operators {ops}")
+    module = ep.module()
+    in_process = max(detection_gap(module(*batch), want, f"exported request {r} in this process")
+                     for r, (batch, want) in enumerate(zip(requests, live)))
+    base = str(kernels.BUILD_DIR.parent / "chip_smoke_export")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    path = f"{base}/cars_b{BATCH}.pt2"
+    t0 = time.perf_counter()
+    n_bytes = export_mod.save_exported(ep, path)
+    save_s = time.perf_counter() - t0
+    parts: dict = {}  # the file's MB by part: the graph, the weights, the constants, the example inputs
+    with zipfile.ZipFile(path) as z:
+        for info in z.infolist():
+            key = "/".join(info.filename.split("/")[1:3])
+            parts[key] = parts.get(key, 0.0) + info.file_size / 1e6
+    del ep, module
+    torch.save([tuple(t.cpu() for t in batch) for batch in requests], f"{base}/requests.pt")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([os.path.dirname(os.path.abspath(__file__)),
+                                                        os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, f"{base}/requests.pt", f"{base}/out.pt"],
+                          capture_output=True, text=True, env=env, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the fresh process failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    outs = torch.load(f"{base}/out.pt")
+    gaps = [detection_gap(got, want, f"served request {r}") for r, (got, want) in enumerate(zip(outs, live))]
+    check(max(gaps) <= EXPORT_TOL and in_process <= EXPORT_TOL,
+          f"exported detections {max(gaps):.3e} (fresh process), {in_process:.3e} (this process) from the live "
+          f"pipeline's, above {EXPORT_TOL:g}")
+    for r, n in enumerate(child["launches"]):
+        check(n == {"A": 2, "C": 2}, f"served request {r}: launches {n}, not 2 of A and of C")
+    print(f"[serving export] export_inference at full width, batch {BATCH}: {export_s:.1f} s, {n_nodes} graph "
+          f"calls (the NMS loops unrolled), the kernels' operators {ops}; saved {n_bytes / 1e6:.1f} MB in "
+          f"{save_s:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])
+                                           if v >= 0.05)
+          + f" MB); this process's program within {in_process:.3e} of the live detections")
+    print(f"[serving export] a fresh process ({child_s:.1f} s with its start): load {child['load_s']:.1f} s, "
+          f"warm-up request {child['warm_s']:.2f} s; requests "
+          + ", ".join(f"{ms:.2f} ms (A {n['A']}, C {n['C']})" for ms, n in zip(child["request_ms"], child["launches"]))
+          + "; the live pipeline on the same padded requests in this process "
+          + ", ".join(f"{ms:.2f}" for ms in live_ms) + " ms; phase 3's live requests (points trimmed to their "
+          "bucket) " + ", ".join(f"{ms:.2f}" for ms in phase3_ms)
+          + f" ms ({', '.join(f'{k} {v // REQUESTS}' for k, v in phase3_launches.items() if v)} a request); "
+          f"largest difference from the live detections {max(gaps):.3e} (tol {EXPORT_TOL:g})")
+    shutil.rmtree(base)
+    return {"export_s": export_s, "mb": n_bytes / 1e6, "mb_parts": parts, "graph_calls": n_nodes,
+            "max_abs_diff": max(gaps),
+            "max_abs_diff_in_process": in_process, "load_s": child["load_s"], "request_ms": child["request_ms"],
+            "launches": child["launches"], "live_padded_ms": live_ms, "phase3_request_ms": phase3_ms}
 
 
 # ------------------------------------------------------------ 19. parallel/ on the card
@@ -2879,6 +3150,10 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     print("[learning path]")
     learning = learning_phase(device)
 
+    # 21. the serving export: the cars preset at full width, served from a fresh process
+    print("[serving export]")
+    exported = export_phase(device, request_ms, {"A": launches_a, "C": launches_c})
+
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
          "sparse_pooling_tpu/ops/sparse_pool.py:176", launches_a, res_a),
@@ -2908,6 +3183,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     print("[model options P1-P5] " + json.dumps(options))
     print("[parallel/ phase 19] " + json.dumps(parallel))
     print("[learning path, phase 20] " + json.dumps(learning))
+    print("[serving export, phase 21] " + json.dumps(exported))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))
@@ -2922,7 +3198,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
          "bound_ms": r["bound_ms"],
          "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
          "library_ms": r["library_ms"], "device_ms": r["device_ms"], "cold_ms": r["cold_ms"],
-         "host_us": r["host_us"], "library_device_ms": r["library_device_ms"],
+         "host_us": r["host_us"], "op_host_us": r["op_host_us"], "library_device_ms": r["library_device_ms"],
          "library_host_us": r["library_host_us"]}
         for name, src, rep, n, r in entries
     ]}))

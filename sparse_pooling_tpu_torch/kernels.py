@@ -8,7 +8,15 @@ source is rebuilt on first use and an unchanged one is loaded as is.
 ``build_all`` starts every compile at once, under a file lock, so ranks
 that start together build each library once.
 
-Nothing here runs at import: the CPU tests import every module, and a
+Each kernel is also a PyTorch operator of the ``spt`` namespace
+(``torch.ops.spt.*``, defined on ``OPS`` by the ops module that wraps it):
+its CUDA implementation launches the kernel through the counted wrapper, its
+CPU implementation is the plain twin, and a fake implementation gives the
+output shapes to ``torch.export`` and the compilers, which cannot see into
+a ``ctypes`` call. ``OPS`` is the lower-level ``torch.library.Library``
+route, which ``torch.library.custom_op`` wraps in more Python per call.
+
+Nothing here builds at import: the CPU tests import every module, and a
 machine without a card need not have ``nvcc``.
 """
 
@@ -59,6 +67,10 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# the port's operators; kept alive as long as the process (a Library
+# unregisters its operators when it is collected)
+OPS = torch.library.Library("spt", "DEF")
 
 
 def _nvcc() -> str:

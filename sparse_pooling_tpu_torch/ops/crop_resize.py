@@ -5,7 +5,8 @@ Port of ``sparse_pooling_tpu.ops.crop_resize``:
 
 * ``crop_and_resize_group_einsum_px`` — one window per unit of V grouped
   boxes at the group-centroid start, every variant's ch x cw grid evaluated
-  inside it with tent weights. A CUDA tensor launches kernel C
+  inside it with tent weights, the operator ``torch.ops.spt.group_crop``
+  (backward ``torch.ops.spt.group_crop_bwd``). A CUDA tensor launches kernel C
   (``csrc/group_crop.cu``, several units per block, one thread per sample
   holding all C channels); a CPU tensor runs ``crop_and_resize_group_plain``,
   which keeps the reference's casts of the tent weights and of each product
@@ -265,7 +266,7 @@ def crop_and_resize_group_plain(
     patches = images.reshape(b * h * w, c)[pix.reshape(-1)].reshape(b, p, py, px * c)
     wy = wy.to(images.dtype).reshape(b, p, v * ch, py)
     t = torch.matmul(wy, patches).reshape(b, p, v, ch, px, c)
-    return torch.einsum("bpvkl,bpvilc->bpvikc", wx.to(images.dtype), t)
+    return torch.einsum("bpvkl,bpvilc->bpvikc", wx.to(images.dtype), t).contiguous()  # the kernel's layout
 
 
 @kernels.counted
@@ -344,47 +345,80 @@ def crop_and_resize_group_bwd_kernel(grad: torch.Tensor, boxes_grouped: torch.Te
     return out
 
 
-class _GroupCrop(torch.autograd.Function):
-    """Kernel C (or its twin) forward; C-bwd (or its twin, f32 sums) for the
-    images' gradient, ``bilinear_box_grad`` at ``_group_coords`` for the
-    boxes'. Saves the boxes, and the images only where the boxes require a
+# Kernels C and C-bwd as operators: the dispatcher takes the kernel for a
+# CUDA tensor and the twin (C-bwd's with f32 sums) for a CPU one.
+kernels.OPS.define("group_crop(Tensor images, Tensor boxes_grouped, SymInt crop_h, SymInt crop_w, "
+                   "int patch) -> Tensor")
+kernels.OPS.define("group_crop_bwd(Tensor grad, Tensor boxes_grouped, SymInt height, SymInt width, "
+                   "SymInt crop_h, SymInt crop_w, int patch, ScalarType dtype) -> Tensor")
+# the wrappers are looked up when called, so a patched module name is seen
+kernels.OPS.impl("group_crop", lambda im, bx, ch, cw, patch:
+                 crop_and_resize_group_kernel(im, bx, (ch, cw), patch), "CUDA")
+kernels.OPS.impl("group_crop", lambda im, bx, ch, cw, patch:
+                 crop_and_resize_group_plain(im, bx, (ch, cw), patch), "CPU")
+
+
+def _bwd_args(grad, boxes_grouped, height, width, crop_h, crop_w, patch, dtype):
+    shape = (grad.shape[0], height, width, grad.shape[-1])
+    return grad, boxes_grouped, shape, (crop_h, crop_w), patch, dtype
+
+
+kernels.OPS.impl("group_crop_bwd", lambda *a: crop_and_resize_group_bwd_kernel(*_bwd_args(*a)), "CUDA")
+kernels.OPS.impl("group_crop_bwd", lambda *a: crop_and_resize_group_bwd_plain(*_bwd_args(*a)), "CPU")
+
+
+@torch.library.register_fake("spt::group_crop", lib=kernels.OPS)
+def _group_crop_fake(images, boxes_grouped, crop_h, crop_w, patch):
+    b, p, v, _ = boxes_grouped.shape
+    return images.new_empty((b, p, v, crop_h, crop_w, images.shape[-1]))
+
+
+@torch.library.register_fake("spt::group_crop_bwd", lib=kernels.OPS)
+def _group_crop_bwd_fake(grad, boxes_grouped, height, width, crop_h, crop_w, patch, dtype):
+    return grad.new_empty((grad.shape[0], height, width, grad.shape[-1]), dtype=dtype)
+
+
+def _group_crop_setup(ctx, inputs, output):
+    """Saves the boxes, and the images only where the boxes require a
     gradient."""
 
-    @staticmethod
-    def forward(ctx, images, boxes_grouped, crop_hw, patch):
-        ctx.save_for_backward(images if boxes_grouped.requires_grad else None, boxes_grouped)
-        ctx.image_shape, ctx.dtype, ctx.crop_hw, ctx.patch = (
-            tuple(images.shape), images.dtype, crop_hw, patch)
-        fn = crop_and_resize_group_kernel if images.is_cuda else crop_and_resize_group_plain
-        return fn(images, boxes_grouped, crop_hw, patch)
+    images, boxes_grouped, crop_h, crop_w, patch = inputs
+    ctx.save_for_backward(images if boxes_grouped.requires_grad else None, boxes_grouped)
+    ctx.image_shape, ctx.dtype, ctx.crop_hw, ctx.patch = tuple(images.shape), images.dtype, (crop_h, crop_w), patch
 
-    @staticmethod
-    def backward(ctx, grad):
-        images, boxes = ctx.saved_tensors
-        g_images = g_boxes = None
-        if ctx.needs_input_grad[0]:
-            fn = crop_and_resize_group_bwd_kernel if grad.is_cuda else crop_and_resize_group_bwd_plain
-            g_images = fn(grad.contiguous(), boxes, ctx.image_shape, ctx.crop_hw, ctx.patch, ctx.dtype)
-        if ctx.needs_input_grad[1]:
-            b, p, v, _ = boxes.shape
-            _, h, w, c = ctx.image_shape
-            ch, cw = ctx.crop_hw
-            g_boxes = bilinear_box_grad(
-                grad.reshape(b, p * v, ch, cw, c), images, boxes.reshape(b, p * v, 4),
-                lambda bx: _group_coords(bx.reshape(b, p, v, 4), h, w, ctx.crop_hw, ctx.patch),
-            ).reshape(b, p, v, 4)
-        return g_images, g_boxes, None, None
+
+def _group_crop_backward(ctx, grad):
+    """C-bwd (or its twin, f32 sums) for the images' gradient,
+    ``bilinear_box_grad`` at ``_group_coords`` for the boxes'."""
+
+    images, boxes = ctx.saved_tensors
+    b, h, w, c = ctx.image_shape
+    g_images = g_boxes = None
+    if ctx.needs_input_grad[0]:
+        g_images = torch.ops.spt.group_crop_bwd(grad.contiguous(), boxes, h, w, *ctx.crop_hw, ctx.patch, ctx.dtype)
+    if ctx.needs_input_grad[1]:
+        _, p, v, _ = boxes.shape
+        ch, cw = ctx.crop_hw
+        g_boxes = bilinear_box_grad(
+            grad.reshape(b, p * v, ch, cw, c), images, boxes.reshape(b, p * v, 4),
+            lambda bx: _group_coords(bx.reshape(b, p, v, 4), h, w, ctx.crop_hw, ctx.patch),
+        ).reshape(b, p, v, 4)
+    return g_images, g_boxes, None, None, None
+
+
+torch.library.register_autograd("spt::group_crop", _group_crop_backward, setup_context=_group_crop_setup,
+                                lib=kernels.OPS)
 
 
 def crop_and_resize_group_einsum_px(
     images: torch.Tensor, boxes_grouped: torch.Tensor, crop_hw, patch: int = 8
 ) -> torch.Tensor:
     """Group-shared window crop: one [patch, patch, C] window per unit of V
-    boxes -> [B, P, V, ch, cw, C]. Kernel C on a CUDA tensor, the plain
-    version on a CPU tensor; the gradient reaches the images (C-bwd, or its
-    twin) and, where they require it, the boxes."""
+    boxes -> [B, P, V, ch, cw, C], ``torch.ops.spt.group_crop``: kernel C on
+    a CUDA tensor, the plain version on a CPU tensor; the gradient reaches
+    the images (C-bwd, or its twin) and, where they require it, the boxes."""
 
-    return _GroupCrop.apply(images, boxes_grouped, (int(crop_hw[0]), int(crop_hw[1])), int(patch))
+    return torch.ops.spt.group_crop(images, boxes_grouped, int(crop_hw[0]), int(crop_hw[1]), int(patch))
 
 
 def crop_and_resize_patch_einsum_px(images: torch.Tensor, boxes_px: torch.Tensor, crop_hw,

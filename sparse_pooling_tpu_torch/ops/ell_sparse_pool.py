@@ -4,10 +4,10 @@ Port of ``sparse_pooling_tpu.ops.pallas_sparse_pool`` and of the JAX
 ``ops.sparse_pool.sparse_pool_ell_batch``: the host builder
 (``data.sparse_matrix.build_sparse_pooling_input``) compiles each frame's
 correspondence to fixed-K ELL tables, and the pool computes
-``out[b, t] = sum_k w[b,t,k] * src[b, idx[b,t,k]]`` with them. Dispatch is by
-tensor device: a CUDA tensor launches ``csrc/ell_sparse_pool.cu`` (one launch
-for a whole batch), a CPU tensor runs the plain
-``ops.sparse_pool.sparse_pool_ell_batch_plain``.
+``out[b, t] = sum_k w[b,t,k] * src[b, idx[b,t,k]]`` with them. The operator
+``torch.ops.spt.ell_sparse_pool`` dispatches by tensor device: a CUDA tensor
+launches ``csrc/ell_sparse_pool.cu`` (one launch for a whole batch), a CPU
+tensor runs the plain ``ops.sparse_pool.sparse_pool_ell_batch_plain``.
 
 * ``sparse_pool_ell_batch`` — [B, S, C] x [B, T, K] -> [B, T, C];
 * ``sparse_pool_fused`` — one frame, [S, C] x [T, K] -> [T, C] (B = 1).
@@ -51,14 +51,22 @@ def sparse_pool_ell_kernel(
     return out
 
 
+kernels.OPS.define("ell_sparse_pool(Tensor src_feat, Tensor ell_src, Tensor ell_w) -> Tensor")
+kernels.OPS.impl("ell_sparse_pool", lambda *a: sparse_pool_ell_kernel(*a), "CUDA")
+kernels.OPS.impl("ell_sparse_pool", lambda *a: sparse_pool_ell_batch_plain(*a), "CPU")
+
+
+@torch.library.register_fake("spt::ell_sparse_pool", lib=kernels.OPS)
+def _ell_fake(src_feat, ell_src, ell_w):
+    return src_feat.new_empty((src_feat.shape[0], ell_src.shape[1], src_feat.shape[2]))
+
+
 def sparse_pool_ell_batch(src_feat: torch.Tensor, ell_src: torch.Tensor, ell_w: torch.Tensor) -> torch.Tensor:
     """ELL sparse pool of a batch [B, S, C] -> [B, T, C], each frame's
-    indices local to it: kernel B (one launch) on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    indices local to it, ``torch.ops.spt.ell_sparse_pool``: kernel B (one
+    launch) on a CUDA tensor, the plain version on a CPU tensor."""
 
-    if src_feat.is_cuda:
-        return sparse_pool_ell_kernel(src_feat, ell_src, ell_w)
-    return sparse_pool_ell_batch_plain(src_feat, ell_src, ell_w)
+    return torch.ops.spt.ell_sparse_pool(src_feat, ell_src, ell_w)
 
 
 def sparse_pool_fused(src_feat: torch.Tensor, ell_src: torch.Tensor, ell_w: torch.Tensor) -> torch.Tensor:

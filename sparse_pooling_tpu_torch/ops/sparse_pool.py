@@ -3,12 +3,14 @@
 Port of ``sparse_pooling_tpu.ops.sparse_pool``:
 
 * ``sparse_pool_patch_major_batch`` — the fusion layer's pool, with its
-  gradient (a ``torch.autograd.Function``). Each point gathers one 2x2xC
+  gradient: the operators ``torch.ops.spt.sparse_pool_patch`` and
+  ``torch.ops.spt.sparse_pool_patch_bwd``. Each point gathers one 2x2xC
   source window at ``cols[..., 0]``, combines the 4 taps with its f32
   bilinear weights and scatter-adds into its target cell; with
   ``divide_by_weight_sum`` the weight sum rides the same scatter as channel
-  C+1 and the result is divided by it where it exceeds 1e-12. On a CUDA
-  tensor the forward launches kernel A (``csrc/sparse_pool_patch.cu``, which
+  C+1 and the result is divided by it where it exceeds 1e-12. The
+  dispatcher goes by the tensors' device: on a CUDA tensor the forward
+  launches kernel A (``csrc/sparse_pool_patch.cu``, which
   sorts the points by target row and gathers each row once instead of
   scattering per point) and the backward kernel A-bwd (the same file: the
   points' corners sorted by source cell, then a gather by cell); on a CPU
@@ -108,7 +110,7 @@ def sparse_pool_patch_plain(
     out = flat[..., :c].to(torch.float32)
     den = flat[..., c:].to(torch.float32)
     out = torch.where(den > 1e-12, out / torch.clamp_min(den, 1e-12), 0.0)
-    return out, den[..., 0].contiguous()
+    return out, den[..., 0].clone(memory_format=torch.contiguous_format)  # storage of its own
 
 
 @kernels.counted
@@ -269,31 +271,69 @@ def sparse_pool_patch_vals_grad(
     return g_vals
 
 
-class _PatchPool(torch.autograd.Function):
-    """Kernel A (or its twin) forward; A-bwd (or its twin) for the source
-    map's gradient, ``sparse_pool_patch_vals_grad`` for the weights'. Saves
-    the COO and the weight sums, and the map and the output only where the
-    weights require a gradient."""
+# Kernels A and A-bwd as operators: the dispatcher takes the kernel for a
+# CUDA tensor and the twin for a CPU one. Without ``divide_by_weight_sum``
+# the weight sums come back as an empty tensor [0] (an operator returns no
+# None).
+kernels.OPS.define("sparse_pool_patch(Tensor src_map, Tensor rows, Tensor cols, Tensor vals, "
+                   "SymInt num_targets, bool divide_by_weight_sum, str accum_dtype) -> (Tensor, Tensor)")
+kernels.OPS.define("sparse_pool_patch_bwd(Tensor grad_out, Tensor rows, Tensor cols, Tensor vals, "
+                   "SymInt src_h, SymInt src_w, Tensor? den, ScalarType dtype) -> Tensor")
 
-    @staticmethod
-    def forward(ctx, src_map, rows, cols, vals, num_targets, divide, accum_dtype):
-        fn = sparse_pool_patch_kernel if src_map.is_cuda else sparse_pool_patch_plain
-        out, den = fn(src_map, rows, cols, vals, num_targets, divide, accum_dtype)
-        keep = vals.requires_grad
-        ctx.save_for_backward(rows, cols, vals, den, src_map if keep else None, out if keep else None)
-        ctx.src_hw, ctx.src_dtype = tuple(src_map.shape[1:3]), src_map.dtype
-        return out
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        rows, cols, vals, den, src_map, out = ctx.saved_tensors
-        g_src = g_vals = None
-        if ctx.needs_input_grad[0]:
-            fn = sparse_pool_patch_bwd_kernel if grad_out.is_cuda else sparse_pool_patch_bwd_plain
-            g_src = fn(grad_out.contiguous(), rows, cols, vals, ctx.src_hw, den, ctx.src_dtype)
-        if ctx.needs_input_grad[3]:
-            g_vals = sparse_pool_patch_vals_grad(grad_out, src_map, rows, cols, out, den).to(vals.dtype)
-        return g_src, None, None, g_vals, None, None, None
+def _with_den(out: torch.Tensor, den):
+    return out, out.new_empty((0,)) if den is None else den
+
+
+# the wrappers are looked up when called, so a patched module name is seen
+kernels.OPS.impl("sparse_pool_patch", lambda *a: _with_den(*sparse_pool_patch_kernel(*a)), "CUDA")
+kernels.OPS.impl("sparse_pool_patch", lambda *a: _with_den(*sparse_pool_patch_plain(*a)), "CPU")
+kernels.OPS.impl("sparse_pool_patch_bwd", lambda g, rows, cols, vals, h, w, den, dtype:
+                 sparse_pool_patch_bwd_kernel(g, rows, cols, vals, (h, w), den, dtype), "CUDA")
+kernels.OPS.impl("sparse_pool_patch_bwd", lambda g, rows, cols, vals, h, w, den, dtype:
+                 sparse_pool_patch_bwd_plain(g, rows, cols, vals, (h, w), den, dtype), "CPU")
+
+
+@torch.library.register_fake("spt::sparse_pool_patch", lib=kernels.OPS)
+def _patch_pool_fake(src_map, rows, cols, vals, num_targets, divide_by_weight_sum, accum_dtype):
+    b, c = src_map.shape[0], src_map.shape[3]
+    return vals.new_empty((b, num_targets, c)), vals.new_empty((b, num_targets) if divide_by_weight_sum else (0,))
+
+
+@torch.library.register_fake("spt::sparse_pool_patch_bwd", lib=kernels.OPS)
+def _patch_pool_bwd_fake(grad_out, rows, cols, vals, src_h, src_w, den, dtype):
+    return grad_out.new_empty((grad_out.shape[0], src_h, src_w, grad_out.shape[2]), dtype=dtype)
+
+
+def _patch_pool_setup(ctx, inputs, output):
+    """Saves the COO and the weight sums, and the map and the output only
+    where the weights require a gradient."""
+
+    src_map, rows, cols, vals, _, divide, _ = inputs
+    out, den = output
+    ctx.mark_non_differentiable(den)
+    keep = vals.requires_grad
+    ctx.save_for_backward(rows, cols, vals, den if divide else None, src_map if keep else None,
+                          out if keep else None)
+    ctx.src_hw, ctx.src_dtype = tuple(src_map.shape[1:3]), src_map.dtype
+
+
+def _patch_pool_backward(ctx, grad_out, _grad_den):
+    """A-bwd (or its twin) for the source map's gradient,
+    ``sparse_pool_patch_vals_grad`` for the weights'."""
+
+    rows, cols, vals, den, src_map, out = ctx.saved_tensors
+    g_src = g_vals = None
+    if ctx.needs_input_grad[0]:
+        g_src = torch.ops.spt.sparse_pool_patch_bwd(grad_out.contiguous(), rows, cols, vals, *ctx.src_hw,
+                                                    den, ctx.src_dtype)
+    if ctx.needs_input_grad[3]:
+        g_vals = sparse_pool_patch_vals_grad(grad_out, src_map, rows, cols, out, den).to(vals.dtype)
+    return g_src, None, None, g_vals, None, None, None
+
+
+torch.library.register_autograd("spt::sparse_pool_patch", _patch_pool_backward,
+                                setup_context=_patch_pool_setup, lib=kernels.OPS)
 
 
 def sparse_pool_patch_major_batch(
@@ -305,13 +345,13 @@ def sparse_pool_patch_major_batch(
     divide_by_weight_sum: bool = False,
     accum_dtype: str = "float32",
 ) -> torch.Tensor:
-    """Point-major pooling with one 2x2 window per point -> [B, T, C] f32.
-    Kernel A on a CUDA tensor, the plain version on a CPU tensor; the
-    gradient reaches ``src_map`` (A-bwd, or its twin) and, where they require
-    it, ``vals``."""
+    """Point-major pooling with one 2x2 window per point -> [B, T, C] f32,
+    ``torch.ops.spt.sparse_pool_patch``: kernel A on a CUDA tensor, the plain
+    version on a CPU tensor; the gradient reaches ``src_map`` (A-bwd, or its
+    twin) and, where they require it, ``vals``."""
 
-    return _PatchPool.apply(src_map, rows, cols, vals, int(num_targets), divide_by_weight_sum,
-                            accum_dtype)
+    return torch.ops.spt.sparse_pool_patch(src_map, rows, cols, vals, int(num_targets),
+                                           bool(divide_by_weight_sum), accum_dtype)[0]
 
 
 def sparse_pool_ell_batch_plain(

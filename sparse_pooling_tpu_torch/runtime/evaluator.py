@@ -24,8 +24,10 @@ to the writer; a pinned buffer is reused only after the writer has read it.
 
 The AP backend is always the native evaluator: a failed build or load
 raises (the numpy oracle, ``runtime.metrics``, is its twin in the tests).
-Not ported: the prediction image summary, which draws with PIL and
-``demos/vis_utils`` (ROADMAP Queue 1).
+Before the AP, the first val frame's predictions and ground truth are drawn
+on its image (``demos.vis_utils.draw_boxes_3d``) into the image summary
+``eval_summaries/images/predictions_<sid>_<step>.png``; a drawing that fails
+prints and never fails the sweep.
 
 In a process group with ``eval.data_parallel`` set, the evaluator lays
 ``parallel.mesh.auto_mesh(eval.batch_size)`` over the world (data axis
@@ -333,6 +335,13 @@ class Evaluator:
         print(f"[evaluator] loader detail: load wall {lt['load_wall']:.2f} cpu {lt['load_cpu']:.2f} "
               f"(summed over threads); stack wall {lt['stack_wall']:.2f} cpu {lt['stack_cpu']:.2f}")
 
+        # image summary: the first val frame with drawn predictions (reference:
+        # prediction-image summaries in summary_utils)
+        try:
+            self._image_summary(step, pred_dir, self.dataset.sample_ids[0])
+        except Exception as e:  # rendering must never fail an eval sweep
+            print(f"[evaluator] image summary failed: {e}")
+
         ap = kitti_eval.evaluate_dirs(os.path.join(self.dataset.base, "label_2"), pred_dir,
                                       cfg.model.classes, n_points=cfg.eval.ap_n_points)
         fps = n / max(dt, 1e-9)
@@ -350,6 +359,21 @@ class Evaluator:
         with open(os.path.join(self.workdir, f"eval_{step}.json"), "w") as f:
             json.dump(result, f, indent=2)
         return self._from_rank0(result)
+
+    def _image_summary(self, step: int, pred_dir: str, sid: str) -> None:
+        from sparse_pooling_tpu_torch.data import calib as calib_mod
+        from sparse_pooling_tpu_torch.data import labels as labels_mod
+        from sparse_pooling_tpu_torch.demos import vis_utils
+        from sparse_pooling_tpu_torch.native.sample_loader import decode_png
+
+        base = self.dataset.base
+        preds = labels_mod.read_labels(os.path.join(pred_dir, sid + ".txt"))
+        cal = calib_mod.read_calibration(os.path.join(base, "calib", sid + ".txt"))
+        img = decode_png(os.path.join(base, "image_2", sid + ".png"))
+        gt = labels_mod.read_labels(os.path.join(base, "label_2", sid + ".txt"))
+        out = vis_utils.draw_boxes_3d(img, preds, cal.p2)
+        out = vis_utils.draw_boxes_3d(out, gt, cal.p2, color_key="gt")
+        self.summary.image(step, f"predictions/{sid}", out)
 
     def _from_rank0(self, value):
         """Rank 0's ``value`` on every rank of the mesh (as is without one)."""

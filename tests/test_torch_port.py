@@ -79,6 +79,18 @@ def test_import_check_covers_the_rcnn_module():
     assert "sparse_pooling_tpu_torch/models/fusion_rcnn.py" in names
 
 
+def test_import_check_covers_the_export_preprocess_and_demo_modules():
+    """No JAX, no PIL and no ``sparse_pooling_tpu`` in the serving export,
+    the offline preprocessing, its host data modules and the demos."""
+
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for module in ("runtime/export.py", "experiments/export_model.py", "runtime/preprocess.py",
+                   "data/voxel_grid.py", "data/bev.py", "data/integral_image.py", "demos/__init__.py",
+                   "demos/raster.py", "demos/vis_utils.py", "demos/show_predictions.py"):
+        assert f"sparse_pooling_tpu_torch/{module}" in names, module
+        assert not _imported_roots(REPO / "sparse_pooling_tpu_torch" / module) & set(FORBIDDEN), module
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -464,3 +476,87 @@ def test_timed_device_loop_on_card(cuda):
     assert 0 < timed_device_loop(lambda: x.mul_(1.0), n=5, device=cuda) < 1.0
     with pytest.raises(ValueError, match="CUDA"):
         timed_device_loop(lambda: None, device="cpu")
+
+
+@pytest.mark.cuda
+def test_operators_launch_the_kernels_on_card(cuda):
+    """Each ``torch.ops.spt`` operator on CUDA tensors launches its kernel
+    once (counted by the launcher) and gives the raw launcher's bits; A
+    without the division returns its weight sums as an empty tensor."""
+
+    src, rows, cols, vals = (t.to(cuda) for t in _small_inputs(1))
+    a0 = sparse_pool.sparse_pool_patch_kernel.launches
+    out, den = torch.ops.spt.sparse_pool_patch(src, rows, cols, vals, 11, True, "float32")
+    raw, raw_den = sparse_pool.sparse_pool_patch_kernel(src, rows, cols, vals, 11, True)
+    assert sparse_pool.sparse_pool_patch_kernel.launches - a0 == 2
+    assert torch.equal(out, raw) and torch.equal(den, raw_den)
+    assert torch.ops.spt.sparse_pool_patch(src, rows, cols, vals, 11, False, "float32")[1].shape == (0,)
+    g = torch.randn(2, 11, 4, generator=torch.Generator().manual_seed(2)).to(cuda)
+    b0 = sparse_pool.sparse_pool_patch_bwd_kernel.launches
+    got = torch.ops.spt.sparse_pool_patch_bwd(g, rows, cols, vals, 5, 7, den, torch.float32)
+    assert sparse_pool.sparse_pool_patch_bwd_kernel.launches - b0 == 1
+    assert torch.equal(got, sparse_pool.sparse_pool_patch_bwd_kernel(g, rows, cols, vals, (5, 7), den))
+    x, idx, w = src.reshape(2, 35, 4), rows.reshape(2, 10, 3), vals[:, :10, :3].contiguous()
+    e0 = ell_sparse_pool.sparse_pool_ell_kernel.launches
+    got = torch.ops.spt.ell_sparse_pool(x, idx, w)
+    assert ell_sparse_pool.sparse_pool_ell_kernel.launches - e0 == 1
+    assert torch.equal(got, ell_sparse_pool.sparse_pool_ell_kernel(x, idx, w))
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 16, 20, 8, generator=gen).to(cuda)
+    c = torch.rand(2, 6, 1, 2, generator=gen) * torch.tensor([16.0, 20.0])
+    half = torch.rand(2, 6, 8, 2, generator=gen) * 3
+    boxes = torch.cat([c - half, c + half], -1).contiguous().to(cuda)
+    c0 = crop_resize.crop_and_resize_group_kernel.launches
+    got = torch.ops.spt.group_crop(img, boxes, 3, 3, 10)
+    assert crop_resize.crop_and_resize_group_kernel.launches - c0 == 1
+    assert torch.equal(got, crop_resize.crop_and_resize_group_kernel(img, boxes, (3, 3), 10))
+    grad = torch.randn(2, 6, 8, 3, 3, 8, generator=gen).to(cuda)
+    d0 = crop_resize.crop_and_resize_group_bwd_kernel.launches
+    got = torch.ops.spt.group_crop_bwd(grad, boxes, 16, 20, 3, 3, 10, torch.float32)
+    assert crop_resize.crop_and_resize_group_bwd_kernel.launches - d0 == 1
+    assert torch.equal(got, crop_resize.crop_and_resize_group_bwd_kernel(
+        grad, boxes, (2, 16, 20, 8), (3, 3), 10, torch.float32))
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_kernels_on_card(cuda, tmp_path):
+    """A thin cars model exported on the card, saved and loaded: its
+    detections within 1e-5 of the live pipeline's, A and C launched twice a
+    request from the loaded program; a CPU batch is refused."""
+
+    from sparse_pooling_tpu_torch.data.dataset import MAX_GT_BOXES
+    from sparse_pooling_tpu_torch.runtime import export as export_mod
+
+    pcfg = cars_pyramid_config()
+    cfg = dataclasses.replace(
+        pcfg.model, backbone=dataclasses.replace(pcfg.model.backbone, channels=(8, 8, 8, 16), out_channels=8),
+        avod=dataclasses.replace(pcfg.model.avod, fc_layers=(64,)),
+    )
+    pcfg = dataclasses.replace(pcfg, model=cfg)
+    model = pl.make_model(cfg, device=cuda)
+    batch = pl.stack_frames([synthetic_frame(cfg, 4096, s, image="noise") for s in range(2)], device=cuda)
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1]) + t.shape[2:])], 1)
+
+    p_max = cfg.sparse_pool.max_points
+    batch = batch._replace(points=pad(batch.points, p_max), points_mask=pad(batch.points_mask, p_max),
+                           gt_boxes_3d=pad(batch.gt_boxes_3d, MAX_GT_BOXES),
+                           gt_valid=pad(batch.gt_valid, MAX_GT_BOXES), gt_classes=pad(batch.gt_classes, MAX_GT_BOXES))
+    anchors = pl.static_anchor_grid(cfg, AreaExtents(), device=cuda)
+    want = pl.decode_batch(pl.forward_batch_fn(model, batch, anchors, cfg, AreaExtents()),
+                           batch.ground_plane, cfg, AreaExtents())
+    path = str(tmp_path / "thin_b2.pt2")
+    export_mod.save_exported(export_mod.export_inference(pcfg, model, batch_size=2, device=cuda), path)
+    fn = export_mod.load_serving_fn(path)
+    assert fn.device_type == "cuda"
+    a0 = sparse_pool.sparse_pool_patch_kernel.launches
+    c0 = crop_resize.crop_and_resize_group_kernel.launches
+    got = fn(batch)
+    assert sparse_pool.sparse_pool_patch_kernel.launches - a0 == 2
+    assert crop_resize.crop_and_resize_group_kernel.launches - c0 == 2
+    assert torch.equal(got["valid"], want["valid"])
+    for k in ("boxes_3d", "scores"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="exported for cuda"):
+        fn(pl.RawSample(*(t.cpu() for t in batch)))
