@@ -87,10 +87,12 @@ non-zero):
 12. the rcnn family's narrow parity config on the card against the CPU;
 13. one full-width request of ``people_pyramid_config()`` (two classes, the
    233x267 anchor grid padded to 4x4 blocks, 64 boxes a unit of kernel C):
-   C and A against their twins at its inputs, then the request (A and C
+   C (``kernel_c_phase``: bf16 and f32, times, bound, ``F.grid_sample``)
+   and A against their twins at its inputs, then the request (A and C
    twice, counted) and a profiled one; then one training step of the preset
-   (A, C, A-bwd and C-bwd twice each, counted), C-bwd against its twin at
-   64 boxes a unit;
+   (A, C, A-bwd and C-bwd twice each, counted), C-bwd at 64 boxes a unit
+   (``kernel_c_bwd_phase``: its twins, the same bits twice, times, bound,
+   ``F.grid_sample``'s input gradient);
 14-18. the AVOD detector's model options at full width (the cars preset
    with one switch each, batch 8, phase 3's frames for requests and phase
    6's for steps; counts read around exactly each path's requests or
@@ -1910,7 +1912,10 @@ def people_phase(device):
     """Phase 13: one full-width request of ``people_pyramid_config()`` (two
     classes, a 0.3 m anchor stride over the 233x267 grid that 4x4 blocks pad,
     64 anchors a unit of kernel C): C and A against their twins at its
-    inputs, then the request with the counts read around it."""
+    inputs, then the request with the counts read around it; then one
+    training step, whose C-bwd calls are held and timed. C and C-bwd take
+    ``kernel_c_phase`` and ``kernel_c_bwd_phase`` (times, bound and the
+    ``F.grid_sample`` yardstick at this preset's shapes)."""
 
     cfg = people_pyramid_config().model
     ext = AreaExtents()
@@ -1924,20 +1929,11 @@ def people_phase(device):
         run_request(model, requests[0][1], anchors, cfg, ext)
     torch.cuda.synchronize()
     check(len(a_calls) == 2 and len(c_calls) == 2, "a people request did not reach A and C twice")
-    worst_c = 0.0
-    for img, boxes, crop_hw, patch in (args[:4] for args in c_calls):
+    for boxes in (args[1] for args in c_calls):
         check(boxes.shape[2] == 64, f"kernel C unit of {boxes.shape[2]} boxes, not 4*4*4")
-        for dtype, tol in ((img.dtype, 2e-2 if img.dtype == torch.bfloat16 else 1e-5), (torch.float32, 1e-5)):
-            x = img.to(dtype)
-            got = crop_resize.crop_and_resize_group_kernel(x, boxes, crop_hw, patch)
-            want = crop_resize.crop_and_resize_group_plain(x, boxes, crop_hw, patch)
-            err, rel = compare(got, want, tol, f"people: kernel C {tuple(img.shape)} {dtype}")
-            if dtype == img.dtype:
-                worst_c = max(worst_c, err)
-            print(f"  people: C {tuple(img.shape)} units {tuple(boxes.shape[:3])} patch {patch} {dtype} "
-                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g} rel)")
-        ms = median_ms(lambda: crop_resize.crop_and_resize_group_kernel(img, boxes, crop_hw, patch), spin=True)
-        print(f"  people: C {tuple(img.shape)} {ms:.4f} ms device")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    print("  people: kernel C at the request's inputs")
+    res_c, _ = kernel_c_phase(c_calls, flush)
     worst_a = hold_a(a_calls, "people")
     del a_calls, c_calls
     launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "people")
@@ -1961,18 +1957,14 @@ def people_phase(device):
           "people training step: non-finite losses or gradients")
     check(all(train_launches[k] == 2 for k in ("A", "C", "A-bwd", "C-bwd")),
           f"people training step launches {train_launches}, not 2 each of A, C, A-bwd and C-bwd")
-    worst_c_bwd = 0.0
-    for grad, boxes, image_shape, crop_hw, patch, dtype in (args[:6] for args in c_bwd):
-        got = crop_resize.crop_and_resize_group_bwd_kernel(grad, boxes, image_shape, crop_hw, patch, dtype)
-        want = crop_resize.crop_and_resize_group_bwd_plain(grad, boxes, image_shape, crop_hw, patch, dtype)
-        err, rel, scale = compare_grad(got, want, BWD_TOL[dtype], f"people: C-bwd {tuple(grad.shape)}")
-        worst_c_bwd = max(worst_c_bwd, err)
-        print(f"  people training: C-bwd {tuple(grad.shape)}->{tuple(image_shape)} patch {patch} {dtype} "
-              f"max_abs_err {err:.3e} rel {rel:.3e} of max |twin| {scale:.3e} (tol {BWD_TOL[dtype]:g} rel)")
+    print("  people training: kernel C-bwd at the step's inputs")
+    res_c_bwd = kernel_c_bwd_phase(c_bwd, flush)
+    del flush
     print(f"[people] one training step of batch {BATCH}: total {float(metrics['total']):.5f}; launches "
           + ", ".join(f"{k} {v}" for k, v in train_launches.items()))
     return {"launches": launches, "train_launches": train_launches, "request_ms": request_ms,
-            "max_abs_err": {"A": worst_a, "C": worst_c, "C-bwd": worst_c_bwd}}
+            "max_abs_err": {"A": worst_a, "C": res_c["max_abs_err"], "C-bwd": res_c_bwd["max_abs_err"]},
+            "C": res_c, "C-bwd": res_c_bwd}
 
 
 # ------------------------------------------------------------ model options
@@ -3179,7 +3171,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
         "rcnn_training": {"launches": rcnn_training["launches"], "max_abs_err_A_bwd": rcnn_training["max_abs_err"],
                           "step_ms": rcnn_training["step_ms"]},
         "people": {"launches": people["launches"], "train_launches": people["train_launches"],
-                   "max_abs_err": people["max_abs_err"], "request_ms": people["request_ms"]}}))
+                   "max_abs_err": people["max_abs_err"], "request_ms": people["request_ms"],
+                   "C": people["C"], "C-bwd": people["C-bwd"]}}))
     print("[model options P1-P5] " + json.dumps(options))
     print("[parallel/ phase 19] " + json.dumps(parallel))
     print("[learning path, phase 20] " + json.dumps(learning))

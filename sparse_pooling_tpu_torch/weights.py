@@ -64,11 +64,28 @@ def from_flax(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     return out
 
 
+def truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws truncated to [-2, 2] by the inverse CDF of one
+    uniform draw each (f32): ``sqrt(2) * erfinv(u)``, ``u`` uniform over
+    ``(erf(-sqrt 2), erf(sqrt 2))``, as ``jax.random.truncated_normal`` and
+    PyTorch's ``trunc_normal_`` before 2.13 draw them. Written out here
+    because ``trunc_normal_`` of PyTorch 2.13 samples by rejection: the same
+    seed then gave other weights under another PyTorch."""
+
+    def cdf(x: float) -> float:  # the standard normal CDF, as trunc_normal_ computed it
+        return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+    draw = torch.empty(tuple(shape), dtype=torch.float32)
+    draw.uniform_(2 * cdf(-2.0) - 1, 2 * cdf(2.0) - 1, generator=generator)
+    return draw.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
 @torch.no_grad()
 def init_like_flax(model: nn.Module, seed: int = 0) -> None:
     """Seeded init with flax's defaults: LeCun-normal kernels (truncated at
     two standard deviations, fan_in = kh*kw*in) and zero biases, drawn from
-    one CPU ``torch.Generator`` in module order."""
+    one CPU ``torch.Generator`` in module order (``truncated_normal``: the
+    same weights for a seed under any PyTorch version)."""
 
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
@@ -80,8 +97,6 @@ def init_like_flax(model: nn.Module, seed: int = 0) -> None:
         else:
             fan_in = math.prod(w.shape[1:])
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncation-corrected
-        draw = torch.empty(w.shape, dtype=torch.float32)
-        nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        w.copy_(draw * std)
+        w.copy_(truncated_normal(w.shape, gen) * std)
         if module.bias is not None:
             module.bias.zero_()
