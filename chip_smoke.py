@@ -164,7 +164,9 @@ non-zero):
    unittest preset over its tree, through the host resize, training, the
    sweep of its 5 checkpoints, the native AP): its AP table, finite losses
    and parameters, each ``eval_<step>.json``, A and A-bwd launched (C and
-   C-bwd not: exact RPN crops), counts read around exactly the check; one
+   C-bwd not: exact RPN crops), counts read around exactly the check;
+   ``experiments.analyze_2d_gap`` over each checkpoint's predictions (its
+   medians printed; a checkpoint with AP above 0 must match detections); one
    ``[learning path, phase 20]`` JSON line;
 21. the serving export: ``runtime.export.export_inference`` of the cars
    preset at full width, batch 8, on the card (phase 3's seeded weights and
@@ -194,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import glob
 import json
 import math
 import os
@@ -2312,6 +2315,31 @@ def offline_tools(base: str, cfgs: dict) -> dict:
     return out
 
 
+def gap_phase(work: str, exp: str, results) -> dict:
+    """Phase 20's IoU decomposition: ``experiments.analyze_2d_gap`` over
+    each swept checkpoint's predictions of ``overfit_check`` against its
+    tree's labels; a checkpoint whose AP is above 0 must match detections.
+    -> {step: {"matched": n, "medians": {key: median}}}."""
+
+    from sparse_pooling_tpu_torch.experiments import analyze_2d_gap
+
+    gt_dir = f"{work}/kitti/training/label_2"
+    out = {}
+    for r in results:
+        (pred_dir,) = glob.glob(f"{exp}/predictions/kitti_native_eval/*/{r['step']}/data")
+        rows = analyze_2d_gap.analyze(gt_dir, pred_dir, analyze_2d_gap.calib_dir_of(gt_dir), "Car", 0.1,
+                                      (375, 1242))
+        ap = max(r["ap"]["Car"][m]["moderate"] for m in ("2d", "bev", "3d"))
+        check(bool(rows) or ap == 0, f"analyze_2d_gap matched no detection at step {r['step']} (AP {ap:.3f})")
+        medians = {k: v["median"] for k, v in analyze_2d_gap.summarize(rows).items()} if rows else {}
+        out[r["step"]] = {"matched": len(rows), "medians": medians}
+    keys = ("bev", "iou3d", "3d|gt_hy", "iou2d")
+    print(f"[learning path] analyze_2d_gap by step (matched; medians {' / '.join(keys)}): " + "; ".join(
+        f"{s}: {v['matched']}; " + " / ".join(f"{v['medians'][k]:.3f}" for k in keys if k in v["medians"])
+        for s, v in out.items()))
+    return out
+
+
 def learning_phase(device) -> dict:
     """Phase 20: small ``cars_hard`` and ``people`` trees written by the
     port's tree writer load through ``KittiDataset`` (the cars preset's
@@ -2383,8 +2411,12 @@ def learning_phase(device) -> dict:
           + ", ".join(f"{k} {v}" for k, v in launches.items()))
     print("[learning path] moderate Car AP by step (2d / bev / 3d): " + "; ".join(
         f"{s}: {v['2d']:.3f} / {v['bev']:.3f} / {v['3d']:.3f}" for s, v in table.items()))
+    t0 = time.perf_counter()
+    gap = gap_phase(work, exp, results)
+    gap_s = time.perf_counter() - t0
     shutil.rmtree(base)
     return {"trees": trees, "trees_s": trees_s, "host_resize_ms": resize_ms, "offline": offline,
+            "gap": gap, "gap_s": gap_s,
             "overfit_steps": LEARN_STEPS,
             "overfit_s": wall,
             "step_ms": float(np.median(step_ms)), "loss_first": recs[0]["total"], "loss_last": recs[-1]["total"],
