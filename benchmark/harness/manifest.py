@@ -1,0 +1,66 @@
+"""Where the benchmark's data lives, and how a cell's files are read.
+
+Everything that belongs to one configuration, traffic mix, cell or per-layer
+metric is a file of its own, found by the name ``BENCHMARK.json`` gives it:
+``configs/<config>.json``, ``traffic/<traffic>.json``,
+``workloads/<cell>.json``, ``metrics/<metric>.py``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import sys
+from pathlib import Path
+from typing import Callable, Dict, List
+
+BENCH_DIR = Path(__file__).resolve().parent.parent
+# top-level module names a run may not load, compared whole: the port's name
+# begins with the JAX package's
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "sparse_pooling_tpu")
+
+
+def read_json(path: Path) -> Dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+class Cell:
+    """One cell's files, read from ``bench_dir`` (the benchmark folder) and
+    the ``BENCHMARK.json`` beside it."""
+
+    def __init__(self, name: str, bench_dir: Path = BENCH_DIR):
+        self.bench_dir = Path(bench_dir)
+        self.manifest = read_json(self.bench_dir.parent / "BENCHMARK.json")
+        self.workload = read_json(self.bench_dir / "workloads" / f"{name}.json")
+        if self.workload["name"] != name:
+            raise ValueError(f"workloads/{name}.json names itself {self.workload['name']!r}")
+        self.name = name
+        self.config = read_json(self.bench_dir / "configs" / f"{self.workload['config']}.json")
+        self.traffic = read_json(self.bench_dir / "traffic" / f"{self.workload['traffic']}.json")
+
+    def end_to_end(self) -> List[Dict]:
+        """The manifest's end-to-end metrics this cell reports."""
+
+        return [m for m in self.manifest["end_to_end"] if self.name in m.get("workloads", [self.name])]
+
+    def per_layer(self) -> List[Dict]:
+        """The manifest's per-layer metrics this cell reports."""
+
+        return [m for m in self.manifest["per_layer"] if self.name in m.get("workloads", [self.name])]
+
+    def reader(self, metric: str) -> Callable:
+        """``read`` of ``metrics/<metric>.py``."""
+
+        path = self.bench_dir / "metrics" / f"{metric}.py"
+        spec = importlib.util.spec_from_file_location(f"bench_metric_{metric.replace('.', '_')}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module.read
+
+
+def forbidden_loaded() -> List[str]:
+    """Modules in ``sys.modules`` whose top-level name is forbidden."""
+
+    tops = {name.split(".", 1)[0] for name in list(sys.modules)}
+    return sorted(tops.intersection(FORBIDDEN_MODULES))

@@ -1,0 +1,452 @@
+"""The SHPL fusion detector: two VGG-pyramid branches with SHPL fusion both
+ways, the crop-based RPN with top-k + greedy NMS, the stage-2 head, and the
+decode with per-class BEV NMS.
+
+Port of ``sparse_pooling_tpu.models.detector``, eval and train: training
+keeps ``train_nms_size`` proposals, detaches them where
+``avod.stop_gradient_proposals``, and drops stage-2 FC activations with
+``avod.keep_dropout_prob`` (a mask drawn from the caller's generator, scaled
+by 1 / keep, as flax's ``nn.Dropout``). Every tensor carries a leading batch
+dim; feature maps are NHWC. Every option of the reference's detector:
+
+* RPN crops: strided (avg-pool to ``rpn.*_roi_stride``, an optional 1x1
+  projection, then kernel C's grouped window crop, one window per filter
+  unit: a position, a QxQ block with ``rpn.roi_quad``, or on the dense grid
+  a GxG block of neighbour positions, ``rpn.bev_roi_group``), or exact at
+  stride 1 (``crop_and_resize_px_batch`` / ``crop_and_resize_batch``);
+* stage-2 crops: exact at stride 1, else one patch window per proposal from
+  the map avg-pooled to ``avod.*_roi_stride``;
+* the stage-2 head's fusion: ``early``, ``late`` or ``deep``, combined by
+  ``mean`` or ``concat``;
+* box_4c or box_8c; the flip head or the angle vector.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from .config import AreaExtents, ModelConfig
+from .backbone import VggPyramidExtractor
+from .fusion import SparsePoolFusion
+from .layers import Conv, Dense, avg_pool
+from . import anchors as anchor_ops
+from . import encoders, projection
+from .crop_resize import (
+    crop_and_resize_batch,
+    crop_and_resize_group_einsum_px,
+    crop_and_resize_patch_einsum_px,
+    crop_and_resize_px_batch,
+)
+from .nms import nms_batch, top_k_nms_batch
+
+
+# stage-2 regression width per ``avod.box_rep``; "offsets" is the rcnn
+# family's (models/fusion_rcnn.py)
+STAGE2_BOX_DIMS = {"offsets": 6, "box_4c": 10, "box_8c": 24}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.backbone.compute_dtype == "bfloat16" else torch.float32
+
+
+def largest_group_divisor(nz: int, nx: int, group: int) -> int:
+    """Largest g <= group dividing both dense-grid dims (any divisor: a
+    configured group 4 on a 6x6 grid runs at 3)."""
+
+    return max(d for d in range(1, group + 1) if nz % d == 0 and nx % d == 0)
+
+
+class RpnHead(nn.Module):
+    """ROI-fused proposal head: 2 FCs in the compute dtype, f32 outputs."""
+
+    def __init__(self, in_features: int, fusion_channels: int, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Dense(in_features, fusion_channels, dtype=dtype)
+        self.fc2 = Dense(fusion_channels, fusion_channels, dtype=dtype)
+        self.objectness = Dense(fusion_channels, 2)
+        self.offsets = Dense(fusion_channels, 6)
+
+    def forward(self, rois: torch.Tensor):
+        """[B, A, S, S, C] fused ROI features -> objectness [B, A, 2],
+        offsets [B, A, 6]; flattened in (S, S, C) order."""
+
+        b, a = rois.shape[:2]
+        x = rois.reshape(b, a, -1)
+        x = torch.relu(self.fc2(torch.relu(self.fc1(x))))
+        return self.objectness(x), self.offsets(x)
+
+
+class Stage2Head(nn.Module):
+    """AVOD second-stage head: FC stack(s), then cls / box / orientation (/
+    flip) in f32. ``fusion_type`` says where two views fuse: ``early`` (one
+    combine, one FC stack ``fc{i}``), ``late`` (an FC stack per view,
+    ``fc{i}_v{vi}``, combined at the end) or ``deep`` (per-view FCs at every
+    layer, re-combined after each); ``fusion_method`` how: ``mean`` (before
+    the FCs over the kept-branch count, after an FC over the branch count:
+    an FC of a zeroed input is not zero) or ``concat``. One view takes the
+    early stack.
+
+    With a ``model_group`` (``parallel.mesh.shard_module`` sets it and cuts
+    each FC to its column shard) every FC runs tensor-parallel: the full
+    input in, this rank's output features, the full width gathered after it
+    (``parallel.tensor_parallel``); dropout then masks the gathered width,
+    so every model rank draws the same mask."""
+
+    def __init__(self, in_features: int, fc_layers: Sequence[int], num_classes: int, dtype,
+                 box_dim: int = 10, flip_head: bool = False, fusion_type: str = "early",
+                 fusion_method: str = "mean", n_views: int = 1):
+        super().__init__()
+        self.dtype, self.n_fc, self.fusion_method = dtype, len(fc_layers), fusion_method
+        self.model_group = None
+        self.fusion_type = fusion_type if n_views > 1 and fusion_type in ("late", "deep") else "early"
+        mult = 2 if n_views > 1 and fusion_method == "concat" else 1
+        widths = [in_features, *fc_layers]
+        if self.fusion_type == "early":
+            widths[0] *= mult
+            for i in range(self.n_fc):
+                self.add_module(f"fc{i + 1}", Dense(widths[i], widths[i + 1], dtype=dtype))
+            out = widths[-1]
+        else:
+            for i in range(self.n_fc):
+                cin = widths[i] * (mult if self.fusion_type == "deep" else 1)
+                for vi in range(n_views):
+                    self.add_module(f"fc{i + 1}_v{vi}", Dense(cin, widths[i + 1], dtype=dtype))
+            out = widths[-1] * mult
+        self.cls = Dense(out, num_classes + 1)
+        self.box_reg = Dense(out, box_dim)
+        self.orientation = Dense(out, 2)
+        if flip_head:
+            self.flip = Dense(out, 2)
+
+    def _combine(self, views, denom):
+        if len(views) == 1:
+            return views[0]
+        if self.fusion_method == "concat":
+            return torch.cat(views, dim=-1)
+        return sum(views) / denom
+
+    def forward(self, roi_views, denom, keep_prob: float = 1.0, generator=None):
+        """roi_views: per-view [B, P, S, S, C]; denom [B, 1, 1] kept-branch
+        count; ``keep_prob`` < 1 applies dropout after each FC."""
+
+        b, p = roi_views[0].shape[:2]
+        views = [v.reshape(b, p, -1).to(self.dtype) for v in roi_views]
+
+        def fc(name, x):
+            return torch.relu(getattr(self, name)(x))
+
+        n = float(len(views))
+        if self.fusion_type == "late":
+            outs = []
+            for vi, x in enumerate(views):
+                for i in range(self.n_fc):
+                    x = fc(f"fc{i + 1}_v{vi}", x)
+                outs.append(x)
+            x = self._combine(outs, n)
+        elif self.fusion_type == "deep":
+            x = self._combine(views, denom)
+            for i in range(self.n_fc):
+                x = self._combine([fc(f"fc{i + 1}_v{vi}", x) for vi in range(len(views))], n)
+        else:
+            x = self._combine(views, denom)
+            for i in range(self.n_fc):
+                x = fc(f"fc{i + 1}", x)
+        flip = self.flip(x) if hasattr(self, "flip") else None
+        return self.cls(x), self.box_reg(x), self.orientation(x), flip
+
+
+def px_scales(cfg: ModelConfig, extents: AreaExtents, device):
+    """Scales from normalised boxes to pixels: BEV boxes over the content
+    grid (not the padded map), image boxes over the canvas; [4] each."""
+
+    grid_h, grid_w = cfg.bev.grid_hw(extents)
+    img_h, img_w = cfg.image.height, cfg.image.width
+    return (torch.tensor([grid_h - 1.0, grid_w - 1.0] * 2, device=device),
+            torch.tensor([img_h - 1.0, img_w - 1.0] * 2, device=device))
+
+
+def stage2_rois(bev_feat, img_feat, proposals, p2, cfg: ModelConfig, extents: AreaExtents,
+                strides=(1, 1)):
+    """``avod.roi_size`` crops of both decode-stride maps at the proposals
+    [B, P, 6]: (BEV, image) ROIs [B, P, S, S, C]. At a stride of 1 the exact
+    crop, pixel boxes mapped onto the ``decode_stride`` lattice by cell-centre
+    alignment; above, one ``avod.roi_patch`` window per proposal from the map
+    avg-pooled to that stride (``crop_and_resize_patch_einsum_px``)."""
+
+    bev_px_scale, img_px_scale = px_scales(cfg, extents, proposals.device)
+    ds = cfg.backbone.decode_stride
+    s2 = (cfg.avod.roi_size, cfg.avod.roi_size)
+
+    def crop(feat, boxes_px, stride):
+        if stride <= 1:
+            return crop_and_resize_px_batch(feat, (boxes_px - (ds - 1) / 2) / ds, s2)
+        k = stride // ds
+        src = avg_pool(feat, k) if k > 1 else feat
+        return crop_and_resize_patch_einsum_px(src, (boxes_px - (stride - 1) / 2) / stride, s2,
+                                               patch=cfg.avod.roi_patch)
+
+    prop_bev = projection.project_to_bev(proposals, extents)
+    prop_img = projection.project_to_image_space(proposals, p2, (cfg.image.height, cfg.image.width))
+    return (crop(bev_feat, prop_bev * bev_px_scale, strides[0]),
+            crop(img_feat, prop_img * img_px_scale, strides[1]))
+
+
+class SparsePoolingDetector(nn.Module):
+    """Batch-native two-branch fusion detector."""
+
+    def __init__(self, cfg: ModelConfig, extents: AreaExtents = AreaExtents()):
+        super().__init__()
+        c = cfg
+        if c.avod.box_rep not in ("box_4c", "box_8c"):
+            raise ValueError(f"unknown box_rep '{c.avod.box_rep}'")
+        self.cfg, self.extents = cfg, extents
+        dt = compute_dtype(cfg)
+        bb = c.backbone
+        self.bev_extractor = VggPyramidExtractor(
+            c.bev.num_channels, bb.channels, bb.blocks, bb.out_channels, dt,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
+        )
+        self.img_extractor = VggPyramidExtractor(
+            c.image.channels, bb.channels, bb.blocks, bb.out_channels, dt,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
+        )
+        mid = bb.channels[-1]
+        sp = c.sparse_pool
+        self.bev_fusion = SparsePoolFusion(mid, mid, mid, dt, sp.pool_channels, sp.accum_dtype)
+        if sp.bev_to_img:
+            self.img_fusion = SparsePoolFusion(mid, mid, mid, dt, sp.pool_channels, sp.accum_dtype)
+        # 1x1 projections of the pooled maps before a strided crop (the
+        # make_model check keeps both views at one width)
+        roi_c = bb.out_channels
+        if c.rpn.roi_channels and bb.out_channels > c.rpn.roi_channels:
+            for name, stride in (("bev_roi_proj", c.rpn.bev_roi_stride), ("img_roi_proj", c.rpn.img_roi_stride)):
+                if stride > 1:
+                    roi_c = c.rpn.roi_channels
+                    self.add_module(name, Conv(bb.out_channels, roi_c, 1, dt))
+        self.bev_group = 1
+        if c.rpn.dense_grid and c.rpn.bev_roi_stride > 1:
+            nz, nx = anchor_ops.grid_shape(c.anchors, extents)
+            self.bev_group = largest_group_divisor(nz, nx, c.rpn.bev_roi_group)
+            if self.bev_group != c.rpn.bev_roi_group:
+                print(f"[detector] bev_roi_group={c.rpn.bev_roi_group} does not divide the "
+                      f"{nz}x{nx} anchor grid; using largest divisor {self.bev_group}")
+        s = c.rpn.proposal_roi_size
+        self.rpn_head = RpnHead(s * s * roi_c, c.rpn.fusion_channels, dt)
+        s2 = c.avod.roi_size
+        self.stage2_head = Stage2Head(
+            s2 * s2 * bb.out_channels, c.avod.fc_layers, c.num_classes, dt,
+            box_dim=STAGE2_BOX_DIMS[c.avod.box_rep], flip_head=c.avod.explicit_flip_head,
+            fusion_type=c.avod.fusion_type, fusion_method=c.avod.fusion_method, n_views=2,
+        )
+
+    def _rpn_rois(self, feat, boxes_px_full, stride, proj, n_var, quad, group=1):
+        """avg-pool to the ROI stride -> optional 1x1 projection -> grouped
+        window crop (kernel C on the card), one window per filter unit; with
+        ``group`` > 1 (the dense grid's BEV view) a GxG block of neighbour
+        positions shares one window, the boxes permuted block-major for the
+        crop and back. Each window grows by the spread of its unit's
+        positions."""
+
+        c = self.cfg
+        ds = c.backbone.decode_stride
+        s = c.rpn.proposal_roi_size
+        k = stride // ds
+        src = avg_pool(feat, k) if k > 1 else feat
+        if proj is not None:
+            src = proj(src)
+        boxes_pooled = (boxes_px_full - (stride - 1) / 2) / stride
+        b, a = boxes_pooled.shape[:2]
+        spread = max(quad, group) - 1
+        spacing = c.anchors.stride / (c.bev.voxel_size * stride)
+        patch = c.rpn.roi_patch + (int(math.ceil(spread * spacing)) if spread else 0)
+        if group > 1:
+            nz, nx = anchor_ops.grid_shape(c.anchors, self.extents)
+            units = anchor_ops.quad_major(boxes_pooled.reshape(b, nz * nx, n_var, 4), nz, nx, group)
+            rois = crop_and_resize_group_einsum_px(
+                src.contiguous(), units.reshape(b, -1, group * group * n_var, 4).contiguous(),
+                (s, s), patch=patch,
+            )
+            rois = rois.reshape(b, nz // group, nx // group, group, group, n_var, s, s, -1)
+            return rois.permute(0, 1, 3, 2, 4, 5, 6, 7, 8).reshape(b, a, s, s, rois.shape[-1])
+        rois = crop_and_resize_group_einsum_px(
+            src.contiguous(), boxes_pooled.reshape(b, a // n_var, n_var, 4).contiguous(),
+            (s, s), patch=patch,
+        )
+        return rois.reshape(b, a, s, s, rois.shape[-1])
+
+    def forward(self, inputs: Dict[str, Any], train: bool = False,
+                generator: Optional[torch.Generator] = None, picks=None,
+                proposals=None) -> Dict[str, torch.Tensor]:
+        """inputs (leading batch dim B): bev_input, bev_pre_packed, image
+        [B, Hi, Wi, 3] f32, m_bev / m_fv DeviceCoo, p2 [B, 3, 4], anchors
+        [B, A, 8], anchor_valid [B, A], path_keep [B, 2]. ``picks`` (an
+        ``NmsResult``) replaces the RPN's own NMS, and ``proposals`` [B, K, 6]
+        the boxes stage 2 crops at. Also returns every anchor's score, the
+        proposals its own offsets give at the picks (``own_proposals``) and
+        both fusion layers' outputs."""
+
+        c = self.cfg
+        ext = self.extents
+        img_hw = (c.image.height, c.image.width)
+        bev_keep = inputs["path_keep"][:, 0]
+        img_keep = inputs["path_keep"][:, 1]
+
+        # backbones + SHPL fusion
+        bev_mid, bev_skips = self.bev_extractor.encode(
+            inputs["bev_input"], pre_packed=inputs["bev_pre_packed"]
+        )
+        img_mid, img_skips = self.img_extractor.encode(inputs["image"])
+        kb = bev_keep[:, None, None, None].to(bev_mid.dtype)
+        ki = img_keep[:, None, None, None].to(img_mid.dtype)
+        bev_mid_k = bev_mid * kb
+        img_mid_k = img_mid * ki
+        bev_mid_f = self.bev_fusion(bev_mid_k, img_mid_k, inputs["m_bev"])
+        if c.sparse_pool.bev_to_img:
+            img_mid_f = self.img_fusion(img_mid_k, bev_mid_k, inputs["m_fv"])
+        else:
+            img_mid_f = img_mid_k
+        bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips) * kb
+        img_feat = self.img_extractor.decode(img_mid_f, img_skips) * ki
+
+        # RPN
+        anchors = inputs["anchors"][..., :6]
+        anchor_valid = inputs["anchor_valid"]
+        bev_boxes = projection.project_to_bev(anchors, ext)
+        img_boxes = projection.project_to_image_space(anchors, inputs["p2"], img_hw)
+        bev_px_scale, img_px_scale = px_scales(c, ext, anchors.device)
+        quad = (
+            c.rpn.roi_quad
+            if not c.rpn.dense_grid and anchor_ops.quad_supported(
+                c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
+            else 1
+        )
+        n_var = len(c.anchors.sizes) * len(c.anchors.rotations) * quad * quad
+        s = c.rpn.proposal_roi_size
+        # strided: the grouped window crop; stride 1: exact crops, the BEV
+        # view in content pixels, the image view normalised over its map
+        if c.rpn.bev_roi_stride > 1:
+            bev_rois = self._rpn_rois(bev_feat, bev_boxes * bev_px_scale, c.rpn.bev_roi_stride,
+                                      getattr(self, "bev_roi_proj", None), n_var, quad, self.bev_group)
+        else:
+            bev_rois = crop_and_resize_px_batch(bev_feat, bev_boxes * bev_px_scale, (s, s))
+        if c.rpn.img_roi_stride > 1:
+            img_rois = self._rpn_rois(img_feat, img_boxes * img_px_scale, c.rpn.img_roi_stride,
+                                      getattr(self, "img_roi_proj", None), n_var, quad)
+        else:
+            img_rois = crop_and_resize_batch(img_feat, img_boxes, (s, s))
+        denom = torch.clamp_min(bev_keep + img_keep, 1.0)[:, None, None, None, None]
+        rois = (bev_rois + img_rois.to(bev_rois.dtype)) / denom.to(bev_rois.dtype)
+
+        objectness, offsets = self.rpn_head(rois)
+        proposals_all = encoders.offset_to_anchor(anchors, offsets)
+        scores_all = torch.softmax(objectness, dim=-1)[..., 1]
+        scores_all = torch.where(anchor_valid, scores_all, -torch.inf)
+        prop_bev_all = projection.project_to_bev(proposals_all, ext)
+        # the selection passes no gradient: NMS runs on detached copies
+        sel = picks if picks is not None else top_k_nms_batch(
+            prop_bev_all.detach(), scores_all.detach(),
+            c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
+            iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
+        )
+        own_proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
+        proposals = own_proposals if proposals is None else proposals
+        proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+        if c.avod.stop_gradient_proposals:
+            proposals = proposals.detach()
+
+        bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext,
+                                           (c.avod.bev_roi_stride, c.avod.img_roi_stride))
+        cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
+            [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
+            keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
+        )
+        extra = {} if flip_logits is None else {"flip_logits": flip_logits}
+        return {
+            **extra,
+            "scores_all": scores_all,
+            "prop_bev_all": prop_bev_all,
+            "rpn_picks": sel,
+            "own_proposals": own_proposals,
+            "bev_fused": bev_mid_f,
+            "img_fused": img_mid_f,
+            "objectness": objectness,
+            "rpn_offsets": offsets,
+            "anchors": inputs["anchors"],
+            "anchor_valid": anchor_valid,
+            "proposals": proposals,
+            "proposal_scores": proposal_scores,
+            "proposal_valid": sel.valid,
+            "cls_logits": cls_logits,
+            "box_offsets": box_offsets,
+            "orientation": orientation,
+        }
+
+
+def decode_detections(
+    outputs: Dict[str, torch.Tensor],
+    ground_plane: torch.Tensor,  # [B, 4]
+    cfg: ModelConfig,
+    extents: AreaExtents = AreaExtents(),
+    picks=None,
+) -> Dict[str, torch.Tensor]:
+    """Stage-2 decode + per-class BEV NMS -> boxes_3d [B, C, K, 7], scores
+    [B, C, K], valid [B, C, K]."""
+
+    proposals = outputs["proposals"]
+    plane = ground_plane[:, None, :]
+    prop_box3d = encoders.anchor_to_box_3d(proposals)
+    if cfg.avod.box_rep == "box_8c":
+        final = encoders.offsets_to_box_8c(encoders.box_3d_to_corners(prop_box3d), outputs["box_offsets"])
+        boxes_3d = encoders.box_8c_to_box_3d(final)
+    else:
+        final_4c = encoders.offsets_to_box_4c(encoders.box_3d_to_box_4c(prop_box3d, plane),
+                                              outputs["box_offsets"])
+        boxes_3d = encoders.box_4c_to_box_3d(final_4c, plane)
+
+    ry = boxes_3d[..., 6]
+    if "flip_logits" in outputs:
+        ry = encoders.apply_heading_flip(ry, torch.argmax(outputs["flip_logits"], dim=-1))
+    else:
+        theta = encoders.vector_to_angle(outputs["orientation"])
+        delta = torch.remainder(ry - theta + math.pi, 2 * math.pi) - math.pi
+        ry = torch.where(torch.abs(delta) > math.pi / 2, ry - torch.sign(delta) * math.pi, ry)
+    boxes_3d = torch.cat([boxes_3d[..., :6], ry[..., None]], dim=-1)
+
+    bev_boxes = projection.project_to_bev(encoders.box_3d_to_anchor(boxes_3d), extents)
+    return per_class_nms(boxes_3d, bev_boxes, outputs, cfg, picks)
+
+
+def per_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor, outputs: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, picks=None) -> Dict[str, torch.Tensor]:
+    """Final per-class BEV NMS of decoded boxes_3d [B, P, 7] (BEV boxes [B,
+    P, 4]) on the softmax of ``cls_logits`` over the valid proposals ->
+    boxes_3d [B, C, K, 7], scores [B, C, K], valid [B, C, K]; ``picks``, one
+    ``NmsResult`` a class, replaces the NMS. Also returns every proposal's
+    decoded box, BEV box and class scores."""
+
+    probs = torch.softmax(outputs["cls_logits"], dim=-1)
+    k = cfg.avod.nms_size
+    all_boxes, all_scores, all_valid, all_picks = [], [], [], []
+    for ci in range(cfg.num_classes):
+        scores = torch.where(outputs["proposal_valid"], probs[..., ci + 1], -torch.inf)
+        res = picks[ci] if picks is not None else nms_batch(bev_boxes, scores, k,
+                                                            iou_threshold=cfg.avod.nms_iou_thresh)
+        all_picks.append(res)
+        cls_scores = torch.where(res.valid, torch.gather(scores, 1, res.indices), 0.0)
+        all_boxes.append(torch.gather(boxes_3d, 1, res.indices[..., None].expand(-1, -1, 7)))
+        all_scores.append(cls_scores)
+        all_valid.append(res.valid & (cls_scores > 0))
+    return {
+        "picks": all_picks,
+        "boxes_all": boxes_3d,
+        "bev_all": bev_boxes,
+        "class_scores": torch.where(outputs["proposal_valid"][..., None], probs[..., 1:], -torch.inf),
+        "boxes_3d": torch.stack(all_boxes, dim=1),
+        "scores": torch.stack(all_scores, dim=1),
+        "valid": torch.stack(all_valid, dim=1),
+    }

@@ -1,0 +1,214 @@
+"""MV3D-style fusion R-CNN, the second detector family built on SHPL.
+
+Port of ``sparse_pooling_tpu.models.fusion_rcnn`` (the ``rcnn_cars``
+preset). It differs from ``models.detector.SparsePoolingDetector`` in three
+ways:
+
+* the RPN is a dense convolution over the fused BEV mid features: every
+  fusion-lattice cell scores one anchor per (size, rotation);
+* the anchors are that lattice (``rcnn_anchor_grid``), all valid: no
+  occupancy filter and no grouped RPN crop (kernel C is not on this path);
+* stage 2 averages the exact crops of both views and regresses 6-d anchor
+  offsets (``avod.box_rep="offsets"``) or the corner encodings box_4c and
+  box_8c, which decode and train as the AVOD family's.
+
+The family's losses are ``models.loss.detector_loss_batch``: the reference's
+``rcnn_loss`` samples, weights and sums as the AVOD loss does, and only its
+stage-2 target differs, which that function takes from ``avod.box_rep``.
+
+Both SHPL fusions always run (kernel A twice a forward pass, A-bwd twice in
+training); the family has no path drop, and its proposals keep their
+gradient into stage 2 (the exact crop's box gradient, the loss targets).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .config import AreaExtents, ModelConfig
+from .backbone import VggPyramidExtractor
+from .detector import (
+    STAGE2_BOX_DIMS,
+    Stage2Head,
+    compute_dtype,
+    decode_detections,
+    per_class_nms,
+    stage2_rois,
+)
+from .fusion import SparsePoolFusion
+from .layers import Conv
+from . import encoders, projection
+from .nms import top_k_nms_batch
+
+
+def rcnn_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
+    """Dense fusion-lattice anchors [Hf*Wf*R, 8] f32 with y = 0 (filled per
+    frame): one per cell per (size, rotation), cells row-major, the R
+    variants of a cell adjacent with the rotation fastest (the conv head's
+    NHWC channel order)."""
+
+    s = cfg.sparse_pool.fusion_stride
+    bh, bw = cfg.bev.padded_hw(extents)
+    hf, wf = bh // s, bw // s
+    cell = cfg.bev.voxel_size * s
+    zs = extents.z_min + (np.arange(hf) + 0.5) * cell
+    xs = extents.x_min + (np.arange(wf) + 0.5) * cell
+    gx, gz = np.meshgrid(xs, zs, indexing="xy")  # [hf, wf]
+    n = hf * wf
+    out = []
+    for cls_idx, (l, w, h) in enumerate(cfg.anchors.sizes):
+        for rot_idx in range(len(cfg.anchors.rotations)):
+            dim_x, dim_z = (l, w) if rot_idx % 2 == 0 else (w, l)
+            out.append(np.stack([
+                gx.reshape(-1), np.zeros(n), gz.reshape(-1),
+                np.full(n, dim_x), np.full(n, h), np.full(n, dim_z),
+                np.full(n, rot_idx, np.float64), np.full(n, cls_idx, np.float64),
+            ], axis=1))
+    return np.stack(out, axis=1).reshape(-1, 8).astype(np.float32)
+
+
+class ConvRpnHead(nn.Module):
+    """Dense RPN: 3x3 conv and ReLU in the compute dtype, then 1x1
+    objectness (2R) and offsets (6R) in f32."""
+
+    def __init__(self, in_channels: int, channels: int, anchors_per_cell: int, dtype):
+        super().__init__()
+        self.r = anchors_per_cell
+        self.rpn_conv = Conv(in_channels, channels, 3, dtype)
+        self.objectness = Conv(channels, 2 * anchors_per_cell, 1)
+        self.offsets = Conv(channels, 6 * anchors_per_cell, 1)
+
+    def forward(self, feat: torch.Tensor):
+        """[B, Hf, Wf, C] -> objectness [B, Hf*Wf*R, 2], offsets [B, Hf*Wf*R, 6]:
+        the layers return NHWC, so a cell's R anchors are adjacent, as the
+        anchor grid lays them out."""
+
+        x = torch.relu(self.rpn_conv(feat))
+        obj, off = self.objectness(x), self.offsets(x)
+        b, hf, wf = obj.shape[:3]
+        n = hf * wf * self.r
+        return obj.reshape(b, n, 2).float(), off.reshape(b, n, 6).float()
+
+
+class FusionRcnn(nn.Module):
+    """Two-stage fusion detector, batch-native, NHWC."""
+
+    def __init__(self, cfg: ModelConfig, extents: AreaExtents = AreaExtents()):
+        super().__init__()
+        c = cfg
+        if c.avod.box_rep not in STAGE2_BOX_DIMS:
+            raise ValueError(f"unknown box_rep '{c.avod.box_rep}'")
+        self.cfg, self.extents = cfg, extents
+        dt = compute_dtype(cfg)
+        bb = c.backbone
+        self.bev_extractor = VggPyramidExtractor(
+            c.bev.num_channels, bb.channels, bb.blocks, bb.out_channels, dt,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
+        )
+        self.img_extractor = VggPyramidExtractor(
+            c.image.channels, bb.channels, bb.blocks, bb.out_channels, dt,
+            decode_stride=bb.decode_stride, space_to_depth=bb.space_to_depth, remat=bb.remat,
+        )
+        mid = bb.channels[-1]
+        sp = c.sparse_pool
+        self.bev_fusion = SparsePoolFusion(mid, mid, mid, dt, sp.pool_channels, sp.accum_dtype)
+        self.img_fusion = SparsePoolFusion(mid, mid, mid, dt, sp.pool_channels, sp.accum_dtype)
+        self.rpn_head = ConvRpnHead(mid, c.rpn.fusion_channels,
+                                    len(c.anchors.rotations) * len(c.anchors.sizes), dt)
+        s2 = c.avod.roi_size
+        self.stage2_head = Stage2Head(
+            s2 * s2 * bb.out_channels, c.avod.fc_layers, c.num_classes, dt,
+            box_dim=STAGE2_BOX_DIMS[c.avod.box_rep], flip_head=c.avod.explicit_flip_head,
+        )
+
+    def forward(self, inputs: Dict[str, Any], train: bool = False,
+                generator: Optional[torch.Generator] = None, picks=None,
+                proposals=None) -> Dict[str, torch.Tensor]:
+        """inputs as ``SparsePoolingDetector.forward`` takes them, with the
+        dense grid from ``rcnn_anchor_grid`` as ``anchors`` (``anchor_valid``
+        and ``path_keep`` are not read). ``picks`` and ``proposals`` replace
+        the RPN's NMS and the boxes stage 2 crops at, as in
+        ``SparsePoolingDetector.forward``."""
+
+        c = self.cfg
+        ext = self.extents
+        bev_mid, bev_skips = self.bev_extractor.encode(
+            inputs["bev_input"], pre_packed=inputs["bev_pre_packed"]
+        )
+        img_mid, img_skips = self.img_extractor.encode(inputs["image"])
+        bev_mid_f = self.bev_fusion(bev_mid, img_mid, inputs["m_bev"])
+        img_mid_f = self.img_fusion(img_mid, bev_mid, inputs["m_fv"])
+
+        # dense conv RPN on the fused BEV mid lattice
+        objectness, offsets = self.rpn_head(bev_mid_f)
+        anchors = inputs["anchors"][..., :6]
+        proposals_all = encoders.offset_to_anchor(anchors, offsets)
+        scores_all = torch.softmax(objectness, dim=-1)[..., 1]
+        # the selection passes no gradient: NMS runs on detached copies
+        prop_bev_all = projection.project_to_bev(proposals_all, ext)
+        sel = picks if picks is not None else top_k_nms_batch(
+            prop_bev_all.detach(), scores_all.detach(),
+            c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
+            iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
+        )
+        own_proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
+        proposals = own_proposals if proposals is None else proposals
+        proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+
+        # stage 2: the mean of both views' exact crops on the decoded maps
+        bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips)
+        img_feat = self.img_extractor.decode(img_mid_f, img_skips)
+        bev_rois, img_rois = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext)
+        rois = (bev_rois.to(torch.float32) + img_rois.to(torch.float32)) / 2.0
+        cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
+            [rois], None, keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
+        )
+        extra = {} if flip_logits is None else {"flip_logits": flip_logits}
+        return {
+            **extra,
+            "scores_all": scores_all,
+            "prop_bev_all": prop_bev_all,
+            "rpn_picks": sel,
+            "own_proposals": own_proposals,
+            "bev_fused": bev_mid_f,
+            "img_fused": img_mid_f,
+            "objectness": objectness,
+            "rpn_offsets": offsets,
+            "anchors": inputs["anchors"],
+            "anchor_valid": torch.ones(anchors.shape[:2], dtype=torch.bool, device=anchors.device),
+            "proposals": proposals,
+            "proposal_scores": proposal_scores,
+            "proposal_valid": sel.valid,
+            "cls_logits": cls_logits,
+            "box_offsets": box_offsets,
+            "orientation": orientation,
+        }
+
+
+def decode_rcnn_detections(
+    outputs: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    extents: AreaExtents = AreaExtents(),
+    ground_plane: Optional[torch.Tensor] = None,  # [B, 4]; box_4c and box_8c
+    picks=None,
+) -> Dict[str, torch.Tensor]:
+    """Stage-2 decode and per-class BEV NMS -> boxes_3d [B, C, K, 7], scores
+    [B, C, K], valid [B, C, K]. Offsets: the proposals refined by the 6-d
+    offsets, the heading from the angle vector (its side from the flip head
+    where there is one); box_4c and box_8c decode as ``decode_detections``."""
+
+    if cfg.avod.box_rep != "offsets":
+        if ground_plane is None:
+            raise ValueError("box_4c/box_8c decode needs ground_plane")
+        return decode_detections(outputs, ground_plane, cfg, extents, picks)
+    refined = encoders.offset_to_anchor(outputs["proposals"], outputs["box_offsets"])
+    ry = encoders.vector_to_angle(outputs["orientation"])
+    if "flip_logits" in outputs:
+        ry = encoders.apply_heading_flip(ry, torch.argmax(outputs["flip_logits"], dim=-1))
+    boxes_3d = encoders.anchor_to_box_3d(refined, ry)
+    return per_class_nms(boxes_3d, projection.project_to_bev(refined, extents), outputs, cfg, picks)
+
