@@ -44,6 +44,7 @@ from sparse_pooling_tpu_torch.ops.crop_resize import (
 )
 from sparse_pooling_tpu_torch.ops.nms import nms_batch, top_k_nms_batch
 from sparse_pooling_tpu_torch.parallel.tensor_parallel import copy_to_model, gather_from_model
+from sparse_pooling_tpu_torch.runtime.profiling import span
 
 
 # stage-2 regression width per ``avod.box_rep``; "offsets" is the rcnn
@@ -298,92 +299,98 @@ class SparsePoolingDetector(nn.Module):
 
         c = self.cfg
         ext = self.extents
-        img_hw = (c.image.height, c.image.width)
-        bev_keep = inputs["path_keep"][:, 0]
-        img_keep = inputs["path_keep"][:, 1]
+        with span("detector"):
+            img_hw = (c.image.height, c.image.width)
+            bev_keep = inputs["path_keep"][:, 0]
+            img_keep = inputs["path_keep"][:, 1]
 
-        # backbones + SHPL fusion
-        bev_mid, bev_skips = self.bev_extractor.encode(
-            inputs["bev_input"], pre_packed=inputs["bev_pre_packed"]
-        )
-        img_mid, img_skips = self.img_extractor.encode(inputs["image"])
-        kb = bev_keep[:, None, None, None].to(bev_mid.dtype)
-        ki = img_keep[:, None, None, None].to(img_mid.dtype)
-        bev_mid_k = bev_mid * kb
-        img_mid_k = img_mid * ki
-        bev_mid_f = self.bev_fusion(bev_mid_k, img_mid_k, inputs["m_bev"])
-        if c.sparse_pool.bev_to_img:
-            img_mid_f = self.img_fusion(img_mid_k, bev_mid_k, inputs["m_fv"])
-        else:
-            img_mid_f = img_mid_k
-        bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips) * kb
-        img_feat = self.img_extractor.decode(img_mid_f, img_skips) * ki
+            # backbones + SHPL fusion
+            with span("detector.encode"):
+                bev_mid, bev_skips = self.bev_extractor.encode(
+                    inputs["bev_input"], pre_packed=inputs["bev_pre_packed"]
+                )
+                img_mid, img_skips = self.img_extractor.encode(inputs["image"])
+            kb = bev_keep[:, None, None, None].to(bev_mid.dtype)
+            ki = img_keep[:, None, None, None].to(img_mid.dtype)
+            bev_mid_k = bev_mid * kb
+            img_mid_k = img_mid * ki
+            with span("detector.fusion"):
+                bev_mid_f = self.bev_fusion(bev_mid_k, img_mid_k, inputs["m_bev"])
+                if c.sparse_pool.bev_to_img:
+                    img_mid_f = self.img_fusion(img_mid_k, bev_mid_k, inputs["m_fv"])
+                else:
+                    img_mid_f = img_mid_k
+            with span("detector.decode_maps"):
+                bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips) * kb
+                img_feat = self.img_extractor.decode(img_mid_f, img_skips) * ki
 
-        # RPN
-        anchors = inputs["anchors"][..., :6]
-        anchor_valid = inputs["anchor_valid"]
-        bev_boxes = projection.project_to_bev(anchors, ext)
-        img_boxes = projection.project_to_image_space(anchors, inputs["p2"], img_hw)
-        bev_px_scale, img_px_scale = px_scales(c, ext, anchors.device)
-        quad = (
-            c.rpn.roi_quad
-            if not c.rpn.dense_grid and anchor_ops.quad_supported(
-                c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
-            else 1
-        )
-        n_var = len(c.anchors.sizes) * len(c.anchors.rotations) * quad * quad
-        s = c.rpn.proposal_roi_size
-        # strided: the grouped window crop; stride 1: exact crops, the BEV
-        # view in content pixels, the image view normalised over its map
-        if c.rpn.bev_roi_stride > 1:
-            bev_rois = self._rpn_rois(bev_feat, bev_boxes * bev_px_scale, c.rpn.bev_roi_stride,
-                                      getattr(self, "bev_roi_proj", None), n_var, quad, self.bev_group)
-        else:
-            bev_rois = crop_and_resize_px_batch(bev_feat, bev_boxes * bev_px_scale, (s, s))
-        if c.rpn.img_roi_stride > 1:
-            img_rois = self._rpn_rois(img_feat, img_boxes * img_px_scale, c.rpn.img_roi_stride,
-                                      getattr(self, "img_roi_proj", None), n_var, quad)
-        else:
-            img_rois = crop_and_resize_batch(img_feat, img_boxes, (s, s))
-        denom = torch.clamp_min(bev_keep + img_keep, 1.0)[:, None, None, None, None]
-        rois = (bev_rois + img_rois.to(bev_rois.dtype)) / denom.to(bev_rois.dtype)
+            # RPN
+            anchors = inputs["anchors"][..., :6]
+            anchor_valid = inputs["anchor_valid"]
+            bev_boxes = projection.project_to_bev(anchors, ext)
+            img_boxes = projection.project_to_image_space(anchors, inputs["p2"], img_hw)
+            bev_px_scale, img_px_scale = px_scales(c, ext, anchors.device)
+            quad = (
+                c.rpn.roi_quad
+                if not c.rpn.dense_grid and anchor_ops.quad_supported(
+                    c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
+                else 1
+            )
+            n_var = len(c.anchors.sizes) * len(c.anchors.rotations) * quad * quad
+            s = c.rpn.proposal_roi_size
+            # strided: the grouped window crop; stride 1: exact crops, the BEV
+            # view in content pixels, the image view normalised over its map
+            if c.rpn.bev_roi_stride > 1:
+                bev_rois = self._rpn_rois(bev_feat, bev_boxes * bev_px_scale, c.rpn.bev_roi_stride,
+                                          getattr(self, "bev_roi_proj", None), n_var, quad, self.bev_group)
+            else:
+                bev_rois = crop_and_resize_px_batch(bev_feat, bev_boxes * bev_px_scale, (s, s))
+            if c.rpn.img_roi_stride > 1:
+                img_rois = self._rpn_rois(img_feat, img_boxes * img_px_scale, c.rpn.img_roi_stride,
+                                          getattr(self, "img_roi_proj", None), n_var, quad)
+            else:
+                img_rois = crop_and_resize_batch(img_feat, img_boxes, (s, s))
+            denom = torch.clamp_min(bev_keep + img_keep, 1.0)[:, None, None, None, None]
+            rois = (bev_rois + img_rois.to(bev_rois.dtype)) / denom.to(bev_rois.dtype)
 
-        objectness, offsets = self.rpn_head(rois)
-        proposals_all = encoders.offset_to_anchor(anchors, offsets)
-        scores_all = torch.softmax(objectness, dim=-1)[..., 1]
-        scores_all = torch.where(anchor_valid, scores_all, -torch.inf)
-        prop_bev_all = projection.project_to_bev(proposals_all, ext)
-        # the selection passes no gradient: NMS runs on detached copies
-        sel = top_k_nms_batch(
-            prop_bev_all.detach(), scores_all.detach(),
-            c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
-            iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
-        )
-        proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
-        proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
-        if c.avod.stop_gradient_proposals:
-            proposals = proposals.detach()
+            objectness, offsets = self.rpn_head(rois)
+            proposals_all = encoders.offset_to_anchor(anchors, offsets)
+            scores_all = torch.softmax(objectness, dim=-1)[..., 1]
+            scores_all = torch.where(anchor_valid, scores_all, -torch.inf)
+            prop_bev_all = projection.project_to_bev(proposals_all, ext)
+            # the selection passes no gradient: NMS runs on detached copies
+            with span("detector.rpn_nms"):
+                sel = top_k_nms_batch(
+                    prop_bev_all.detach(), scores_all.detach(),
+                    c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
+                    iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
+                )
+            proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
+            proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+            if c.avod.stop_gradient_proposals:
+                proposals = proposals.detach()
 
-        bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext,
-                                           (c.avod.bev_roi_stride, c.avod.img_roi_stride))
-        cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
-            [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
-            keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
-        )
-        extra = {} if flip_logits is None else {"flip_logits": flip_logits}
-        return {
-            **extra,
-            "objectness": objectness,
-            "rpn_offsets": offsets,
-            "anchors": inputs["anchors"],
-            "anchor_valid": anchor_valid,
-            "proposals": proposals,
-            "proposal_scores": proposal_scores,
-            "proposal_valid": sel.valid,
-            "cls_logits": cls_logits,
-            "box_offsets": box_offsets,
-            "orientation": orientation,
-        }
+            with span("detector.stage2"):
+                bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext,
+                                                   (c.avod.bev_roi_stride, c.avod.img_roi_stride))
+                cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
+                    [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
+                    keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
+                )
+            extra = {} if flip_logits is None else {"flip_logits": flip_logits}
+            return {
+                **extra,
+                "objectness": objectness,
+                "rpn_offsets": offsets,
+                "anchors": inputs["anchors"],
+                "anchor_valid": anchor_valid,
+                "proposals": proposals,
+                "proposal_scores": proposal_scores,
+                "proposal_valid": sel.valid,
+                "cls_logits": cls_logits,
+                "box_offsets": box_offsets,
+                "orientation": orientation,
+            }
 
 
 def decode_detections(
@@ -425,18 +432,19 @@ def per_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor, outputs: Dict
     P, 4]) on the softmax of ``cls_logits`` over the valid proposals ->
     boxes_3d [B, C, K, 7], scores [B, C, K], valid [B, C, K]."""
 
-    probs = torch.softmax(outputs["cls_logits"], dim=-1)
-    k = cfg.avod.nms_size
-    all_boxes, all_scores, all_valid = [], [], []
-    for ci in range(cfg.num_classes):
-        scores = torch.where(outputs["proposal_valid"], probs[..., ci + 1], -torch.inf)
-        res = nms_batch(bev_boxes, scores, k, iou_threshold=cfg.avod.nms_iou_thresh)
-        cls_scores = torch.where(res.valid, torch.gather(scores, 1, res.indices), 0.0)
-        all_boxes.append(torch.gather(boxes_3d, 1, res.indices[..., None].expand(-1, -1, 7)))
-        all_scores.append(cls_scores)
-        all_valid.append(res.valid & (cls_scores > 0))
-    return {
-        "boxes_3d": torch.stack(all_boxes, dim=1),
-        "scores": torch.stack(all_scores, dim=1),
-        "valid": torch.stack(all_valid, dim=1),
-    }
+    with span("decode.nms"):
+        probs = torch.softmax(outputs["cls_logits"], dim=-1)
+        k = cfg.avod.nms_size
+        all_boxes, all_scores, all_valid = [], [], []
+        for ci in range(cfg.num_classes):
+            scores = torch.where(outputs["proposal_valid"], probs[..., ci + 1], -torch.inf)
+            res = nms_batch(bev_boxes, scores, k, iou_threshold=cfg.avod.nms_iou_thresh)
+            cls_scores = torch.where(res.valid, torch.gather(scores, 1, res.indices), 0.0)
+            all_boxes.append(torch.gather(boxes_3d, 1, res.indices[..., None].expand(-1, -1, 7)))
+            all_scores.append(cls_scores)
+            all_valid.append(res.valid & (cls_scores > 0))
+        return {
+            "boxes_3d": torch.stack(all_boxes, dim=1),
+            "scores": torch.stack(all_scores, dim=1),
+            "valid": torch.stack(all_valid, dim=1),
+        }

@@ -43,6 +43,7 @@ from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
 from sparse_pooling_tpu_torch.models.layers import Conv
 from sparse_pooling_tpu_torch.ops import encoders, projection
 from sparse_pooling_tpu_torch.ops.nms import top_k_nms_batch
+from sparse_pooling_tpu_torch.runtime.profiling import span
 
 
 def rcnn_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
@@ -134,49 +135,55 @@ class FusionRcnn(nn.Module):
 
         c = self.cfg
         ext = self.extents
-        bev_mid, bev_skips = self.bev_extractor.encode(
-            inputs["bev_input"], pre_packed=inputs["bev_pre_packed"]
-        )
-        img_mid, img_skips = self.img_extractor.encode(inputs["image"])
-        bev_mid_f = self.bev_fusion(bev_mid, img_mid, inputs["m_bev"])
-        img_mid_f = self.img_fusion(img_mid, bev_mid, inputs["m_fv"])
+        with span("detector"):
+            with span("detector.encode"):
+                bev_mid, bev_skips = self.bev_extractor.encode(
+                    inputs["bev_input"], pre_packed=inputs["bev_pre_packed"]
+                )
+                img_mid, img_skips = self.img_extractor.encode(inputs["image"])
+            with span("detector.fusion"):
+                bev_mid_f = self.bev_fusion(bev_mid, img_mid, inputs["m_bev"])
+                img_mid_f = self.img_fusion(img_mid, bev_mid, inputs["m_fv"])
 
-        # dense conv RPN on the fused BEV mid lattice
-        objectness, offsets = self.rpn_head(bev_mid_f)
-        anchors = inputs["anchors"][..., :6]
-        proposals_all = encoders.offset_to_anchor(anchors, offsets)
-        scores_all = torch.softmax(objectness, dim=-1)[..., 1]
-        # the selection passes no gradient: NMS runs on detached copies
-        sel = top_k_nms_batch(
-            projection.project_to_bev(proposals_all, ext).detach(), scores_all.detach(),
-            c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
-            iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
-        )
-        proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
-        proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+            # dense conv RPN on the fused BEV mid lattice
+            objectness, offsets = self.rpn_head(bev_mid_f)
+            anchors = inputs["anchors"][..., :6]
+            proposals_all = encoders.offset_to_anchor(anchors, offsets)
+            scores_all = torch.softmax(objectness, dim=-1)[..., 1]
+            # the selection passes no gradient: NMS runs on detached copies
+            with span("detector.rpn_nms"):
+                sel = top_k_nms_batch(
+                    projection.project_to_bev(proposals_all, ext).detach(), scores_all.detach(),
+                    c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
+                    iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
+                )
+            proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
+            proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
 
-        # stage 2: the mean of both views' exact crops on the decoded maps
-        bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips)
-        img_feat = self.img_extractor.decode(img_mid_f, img_skips)
-        bev_rois, img_rois = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext)
-        rois = (bev_rois.to(torch.float32) + img_rois.to(torch.float32)) / 2.0
-        cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
-            [rois], None, keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
-        )
-        extra = {} if flip_logits is None else {"flip_logits": flip_logits}
-        return {
-            **extra,
-            "objectness": objectness,
-            "rpn_offsets": offsets,
-            "anchors": inputs["anchors"],
-            "anchor_valid": torch.ones(anchors.shape[:2], dtype=torch.bool, device=anchors.device),
-            "proposals": proposals,
-            "proposal_scores": proposal_scores,
-            "proposal_valid": sel.valid,
-            "cls_logits": cls_logits,
-            "box_offsets": box_offsets,
-            "orientation": orientation,
-        }
+            with span("detector.decode_maps"):
+                bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips)
+                img_feat = self.img_extractor.decode(img_mid_f, img_skips)
+            # stage 2: the mean of both views' exact crops on the decoded maps
+            with span("detector.stage2"):
+                bev_rois, img_rois = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext)
+                rois = (bev_rois.to(torch.float32) + img_rois.to(torch.float32)) / 2.0
+                cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
+                    [rois], None, keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
+                )
+            extra = {} if flip_logits is None else {"flip_logits": flip_logits}
+            return {
+                **extra,
+                "objectness": objectness,
+                "rpn_offsets": offsets,
+                "anchors": inputs["anchors"],
+                "anchor_valid": torch.ones(anchors.shape[:2], dtype=torch.bool, device=anchors.device),
+                "proposals": proposals,
+                "proposal_scores": proposal_scores,
+                "proposal_valid": sel.valid,
+                "cls_logits": cls_logits,
+                "box_offsets": box_offsets,
+                "orientation": orientation,
+            }
 
 
 def decode_rcnn_detections(

@@ -34,6 +34,7 @@ from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
 from sparse_pooling_tpu_torch.ops.image_resize import resize_bilinear_batch
+from sparse_pooling_tpu_torch.runtime.profiling import span
 
 
 class RawSample(NamedTuple):
@@ -56,9 +57,10 @@ def stack_frames(frames: Sequence[Dict[str, np.ndarray]], device="cuda") -> RawS
 
     dev = resolve_device(device)
     fields = {}
-    for name in RawSample._fields:
-        arrs = [f.get(name) for f in frames]
-        fields[name] = None if arrs[0] is None else torch.from_numpy(np.stack(arrs)).to(dev)
+    with span("upload"):
+        for name in RawSample._fields:
+            arrs = [f.get(name) for f in frames]
+            fields[name] = None if arrs[0] is None else torch.from_numpy(np.stack(arrs)).to(dev)
     return RawSample(**fields)
 
 
@@ -142,69 +144,71 @@ def build_model_inputs_batch(
 ) -> Dict[str, Any]:
     """Batch-native input construction on the batch's device."""
 
-    h, w = cfg.bev.grid_hw(extents)
-    hp, _ = cfg.bev.padded_hw(extents)
-    # packed where the backbone packs anyway (bit-identical inputs); an odd
-    # lattice with space_to_depth fails in the encoder, as in the reference
-    packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
-    if packed:
-        bev_input, counts = bev_device.bev_maps_packed_batch(
-            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-        )
-    else:
-        bev_input = bev_device.bev_maps_from_points_batch(
-            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-        )
-    if cfg.image.device_resize and batch.image_scale is not None:
-        image = resize_bilinear_batch(batch.image, batch.image_scale)
-    else:
-        image = batch.image.to(torch.float32) / 255.0
-    m_bev, m_fv = sparse_build.build_coo_device(
-        batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
-    )
-
-    # occupancy raster: a 0/1 indicator for threshold <= 1 (the tier ranking
-    # sums this raster), raw counts above
-    thr = cfg.anchors.density_threshold
-    if packed:
-        occupancy = bev_device.unpack_s2d_raster(counts if thr > 1 else (counts > 0).to(torch.float32), h)
-    elif thr <= 1:
-        occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
-    else:
-        occupancy = bev_device.bev_counts_from_points(
-            batch.points, batch.points_mask, extents, cfg.bev.voxel_size
+    with span("inputs"):
+        h, w = cfg.bev.grid_hw(extents)
+        hp, _ = cfg.bev.padded_hw(extents)
+        # packed where the backbone packs anyway (bit-identical inputs); an odd
+        # lattice with space_to_depth fails in the encoder, as in the reference
+        packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
+        if packed:
+            bev_input, counts = bev_device.bev_maps_packed_batch(
+                batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+            )
+        else:
+            bev_input = bev_device.bev_maps_from_points_batch(
+                batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+            )
+        if cfg.image.device_resize and batch.image_scale is not None:
+            image = resize_bilinear_batch(batch.image, batch.image_scale)
+        else:
+            image = batch.image.to(torch.float32) / 255.0
+        m_bev, m_fv = sparse_build.build_coo_device(
+            batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
         )
 
-    anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
-    if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
-        anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
-                                                   device=anchors_frame.device)
-    elif cfg.rpn.dense_grid:  # every grid anchor, occupancy as a mask
-        fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
-        anchors, valid = anchors_frame, (fp_counts >= thr).reshape(fp_counts.shape[0], -1)
-    elif anchor_ops.quad_supported(
-        cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad
-    ):
-        anchors, valid = anchor_ops.filter_anchor_quads_grid(
-            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-            max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad, density_threshold=thr,
-        )
-    else:
-        anchors, valid = anchor_ops.filter_anchor_positions_grid(
-            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-            max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
-        )
-    return {
-        "bev_input": bev_input,
-        "bev_pre_packed": packed,
-        "image": image,
-        "m_bev": m_bev,
-        "m_fv": m_fv,
-        "anchors": anchors,
-        "anchor_valid": valid,
-        "p2": batch.p2,
-        "path_keep": path_keep,
-    }
+        # occupancy raster: a 0/1 indicator for threshold <= 1 (the tier ranking
+        # sums this raster), raw counts above
+        thr = cfg.anchors.density_threshold
+        if packed:
+            occupancy = bev_device.unpack_s2d_raster(
+                counts if thr > 1 else (counts > 0).to(torch.float32), h)
+        elif thr <= 1:
+            occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
+        else:
+            occupancy = bev_device.bev_counts_from_points(
+                batch.points, batch.points_mask, extents, cfg.bev.voxel_size
+            )
+
+        anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
+        if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
+            anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
+                                                       device=anchors_frame.device)
+        elif cfg.rpn.dense_grid:  # every grid anchor, occupancy as a mask
+            fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
+            anchors, valid = anchors_frame, (fp_counts >= thr).reshape(fp_counts.shape[0], -1)
+        elif anchor_ops.quad_supported(
+            cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad
+        ):
+            anchors, valid = anchor_ops.filter_anchor_quads_grid(
+                anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
+                max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad, density_threshold=thr,
+            )
+        else:
+            anchors, valid = anchor_ops.filter_anchor_positions_grid(
+                anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
+                max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
+            )
+        return {
+            "bev_input": bev_input,
+            "bev_pre_packed": packed,
+            "image": image,
+            "m_bev": m_bev,
+            "m_fv": m_fv,
+            "anchors": anchors,
+            "anchor_valid": valid,
+            "p2": batch.p2,
+            "path_keep": path_keep,
+        }
 
 
 def sample_path_keep(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -269,6 +273,7 @@ def loss_batch(outputs, batch: RawSample, cfg: ModelConfig, extents: AreaExtents
 def decode_batch(outputs, ground_plane: torch.Tensor, cfg: ModelConfig, extents: AreaExtents):
     """Final detections: boxes_3d [B, C, K, 7], scores [B, C, K], valid."""
 
-    if cfg.architecture == "rcnn":
-        return decode_rcnn_detections(outputs, cfg, extents, ground_plane=ground_plane)
-    return decode_detections(outputs, ground_plane, cfg, extents)
+    with span("decode"):
+        if cfg.architecture == "rcnn":
+            return decode_rcnn_detections(outputs, cfg, extents, ground_plane=ground_plane)
+        return decode_detections(outputs, ground_plane, cfg, extents)

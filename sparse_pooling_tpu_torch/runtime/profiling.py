@@ -1,26 +1,165 @@
-"""Profiling: a ``torch.profiler`` trace and a device timer.
+"""Profiling: a ``torch.profiler`` trace, and spans inside the serving
+path.
 
-Port of ``sparse_pooling_tpu.runtime.profiling``. :func:`trace` records the
-host and, on a card, its kernels around a block and writes a Chrome trace
-(Perfetto reads it) into ``logdir``. :func:`timed_device_loop` times ``n``
-calls of a function on the card with CUDA events after a warm-up call.
+Port of ``sparse_pooling_tpu.runtime.profiling``, with spans the JAX package
+does not have.
+
+* :func:`trace` records the host and, on a card, its kernels around a block
+  and writes a Chrome trace (Perfetto reads it) into ``logdir``; spans are on
+  inside it, so the trace shows each as an ``spt.<name>`` range.
+* :func:`span` names a stretch of the program (``with span("decode.nms"):``).
+  It is off unless a :func:`collect` (or :func:`trace`) block is open: it
+  then returns one shared no-op context, after one check of a module
+  global.
+* :func:`collect` turns them on for its block and keeps, for each span, its
+  name, its parent's, its request, its host start and end
+  (``time.perf_counter_ns``) and on a card two CUDA events on the current
+  stream, read only when :meth:`Collection.summary` is asked for. While a
+  ``torch.profiler`` records, each span is also an ``spt.<name>`` range on
+  the profiler's clock.
+
+The serving path's spans: ``upload`` (``pipeline.stack_frames``), ``inputs``
+(``build_model_inputs_batch``), ``detector`` (the detector's forward) with
+``detector.encode``, ``detector.fusion``, ``detector.rpn_nms``,
+``detector.decode_maps`` and ``detector.stage2`` inside it, ``decode``
+(``decode_batch``) with ``decode.nms`` inside it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Callable
+import threading
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional
 
 import torch
 
-from sparse_pooling_tpu_torch import resolve_device
+RANGE_PREFIX = "spt."
+
+_NOOP = contextlib.nullcontext()
+# the open Collection, or None: spans off
+_active: Optional["Collection"] = None
+
+
+class _Span:
+    __slots__ = ("col", "name", "parent", "request", "t0", "t1", "events", "range", "children")
+
+    def __init__(self, col: "Collection", name: str):
+        self.col, self.name = col, name
+
+    def __enter__(self):
+        col = self.col
+        self.parent = col.stack[-1] if col.stack else None
+        self.request, self.children = col.request, []
+        self.range = None
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(RANGE_PREFIX + self.name)
+            self.range.__enter__()
+        self.events = None
+        if col.stream is not None:
+            self.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            self.events[0].record(col.stream)
+        col.stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        col = self.col
+        col.stack.pop()
+        if self.events is not None:
+            self.events[1].record(col.stream)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.parent is not None:
+            self.parent.children.append(self)
+        col.spans.append(self)
+        return False
+
+
+class Collection:
+    """The spans recorded while a :func:`collect` block is open. Spans opened on another thread than the block's are not
+    recorded."""
+
+    def __init__(self, device=None):
+        dev = torch.device(device) if device is not None else None
+        self.device = dev
+        self.stream = torch.cuda.current_stream(dev) if dev is not None and dev.type == "cuda" else None
+        self.thread = threading.get_ident()
+        self.request = 0
+        self.stack: List[_Span] = []
+        self.spans: List[_Span] = []
+
+    def next_request(self) -> int:
+        """Starts a new request: the spans that follow belong to it. Returns its id."""
+
+        self.request += 1
+        return self.request
+
+    def summary(self) -> Dict:
+        """After a device synchronise, per span name: its parent's name and,
+        per request that opened it, ``request``, ``host_ms``, ``device_ms``
+        (the device stream's time between its events; the host ms off a
+        card) and ``self_ms`` (``device_ms`` less its child spans'), the
+        times of a request's spans of one name summed."""
+
+        if self.stream is not None:
+            torch.cuda.synchronize(self.device)
+
+        def device_ms(s: _Span) -> float:
+            if s.events is None:
+                return (s.t1 - s.t0) / 1e6
+            return s.events[0].elapsed_time(s.events[1])
+
+        per: Dict[str, Dict[int, List[float]]] = defaultdict(dict)
+        parents: Dict[str, Optional[str]] = {}
+        for s in self.spans:
+            dev = device_ms(s)
+            row = per[s.name].setdefault(s.request, [0.0, 0.0, 0.0])
+            row[0] += (s.t1 - s.t0) / 1e6
+            row[1] += dev
+            row[2] += dev - sum(device_ms(c) for c in s.children)
+            parents[s.name] = s.parent.name if s.parent is not None else None
+        spans = {}
+        for name, rows in per.items():
+            reqs = sorted(rows)
+            spans[name] = {"parent": parents[name], "request": reqs,
+                           "host_ms": [rows[r][0] for r in reqs], "device_ms": [rows[r][1] for r in reqs],
+                           "self_ms": [rows[r][2] for r in reqs]}
+        return {"spans": spans}
+
+
+def span(name: str):
+    """A context naming a stretch of the program ``name``; the shared no-op
+    context while tracing is off."""
+
+    col = _active
+    if col is None or col.thread != threading.get_ident():
+        return _NOOP
+    return _Span(col, name)
+
+
+@contextlib.contextmanager
+def collect(device=None):
+    """Turns spans on for the block and yields the
+    :class:`Collection` that keeps them; CUDA events time the spans on
+    ``device``'s current stream where it is a card."""
+
+    global _active
+    col, outer = Collection(device), _active
+    _active = col
+    try:
+        yield col
+    finally:
+        _active = outer
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block and write ``<logdir>/trace.json`` (Chrome trace);
-    yields the ``torch.profiler.profile`` object."""
+    """Profile the block, spans on, and write ``<logdir>/trace.json``
+    (Chrome trace); yields the ``torch.profiler.profile`` object."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -28,26 +167,6 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, collect():
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def timed_device_loop(body: Callable[[], object], n: int = 10, device="cuda") -> float:
-    """Seconds of device time a call of ``body()``: one warm-up call, then
-    ``n`` calls between two CUDA events on ``device``'s current stream
-    (the host's enqueue included where it outlasts the device). Raises on a
-    device that is not a card: a host clock is no device time."""
-
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"timed_device_loop times a CUDA device, not {dev}")
-    with torch.cuda.device(dev):
-        body()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            body()
-        end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3 / n

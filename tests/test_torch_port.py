@@ -469,16 +469,6 @@ def test_evaluator_on_card_matches_cpu(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_timed_device_loop_on_card(cuda):
-    from sparse_pooling_tpu_torch.runtime.profiling import timed_device_loop
-
-    x = torch.randn(1 << 20, device=cuda)
-    assert 0 < timed_device_loop(lambda: x.mul_(1.0), n=5, device=cuda) < 1.0
-    with pytest.raises(ValueError, match="CUDA"):
-        timed_device_loop(lambda: None, device="cpu")
-
-
-@pytest.mark.cuda
 def test_operators_launch_the_kernels_on_card(cuda):
     """Each ``torch.ops.spt`` operator on CUDA tensors launches its kernel
     once (counted by the launcher) and gives the raw launcher's bits; A
