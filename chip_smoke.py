@@ -23,11 +23,16 @@ non-zero):
    kernel B at one frame, at the probe's shapes and at batch 8 (request 0's
    frames, each with its own host ELL tables), with its share of live ELL
    slots and its tap reads, and with ``--ell-baseline`` the given earlier
-   kernel B source timed on the same work;
+   kernel B source timed on the same work; the greedy NMS kernel at the
+   warm-up request's two calls (the RPN's 8 x 4096 candidates to 128 picks,
+   the final 8 x 128 to 100; ``nms_phase``): its picks equal to the plain
+   loop's bit for bit on the card and the CPU, its times, the plain loop's,
+   its bound (no library computes greedy NMS: its library times print null);
 3. the main path: the cars preset at full width (bf16 compute) answers 3
    requests of batch 8 synthetic frames (16384 points, seeded) through
-   ``forward_batch_fn`` + ``decode_batch``; launch counts of kernels A and C
-   are read around exactly these 3 requests; then where the time goes: the
+   ``forward_batch_fn`` + ``decode_batch``; launch counts of kernels A, C
+   and NMS (2 each a request) are read around exactly these 3 requests;
+   then where the time goes: the
    stage times of one more request and a torch.profiler split of another;
 4. the ELL path: the host ELL tables (K=8) of request 0's 8 frames pool
    their post-projection mid features through ``sparse_pool_ell_batch``,
@@ -75,9 +80,13 @@ non-zero):
    ``run_inference`` on two frames;
 10. the rcnn family (``rcnn_cars_config()``: ``FusionRcnn``, a dense conv
    RPN over 17600 anchors a frame, no kernel C) at full width: kernel A
-   against its twin at the inputs of a warm-up request, then 3 requests of
+   against its twin at the inputs of a warm-up request, the greedy NMS
+   kernel as in phase 2 at its two calls (8 x 4096 to 300 picks at IoU 0.8,
+   8 x 300 to 100 at 0.01) and off the serving path at the training size
+   (1024 picks) and over every anchor (8 x 17600 to 256, the parity
+   training step's NMS), then 3 requests of
    batch 8 (phase 3's frames, ``eval_nms_size`` 300) with the counts read
-   around exactly these (A twice a request, nothing else), latency, peak
+   around exactly these (A and NMS twice a request, nothing else), latency, peak
    memory, a profiled request (busy, launches, A's device time beside phase
    3's);
 11. rcnn training at full width, batch 8, Adam: A-bwd against its twin at
@@ -89,7 +98,8 @@ non-zero):
    233x267 anchor grid padded to 4x4 blocks, 64 boxes a unit of kernel C):
    C (``kernel_c_phase``: bf16 and f32, times, bound, ``F.grid_sample``)
    and A against their twins at its inputs, then the request (A and C
-   twice, counted) and a profiled one; then one training step of the preset
+   twice, NMS three times: the RPN's and one a class; counted) and a
+   profiled one; then one training step of the preset
    (A, C, A-bwd and C-bwd twice each, counted), C-bwd at 64 boxes a unit
    (``kernel_c_bwd_phase``: its twins, the same bits twice, times, bound,
    ``F.grid_sample``'s input gradient);
@@ -174,7 +184,7 @@ non-zero):
    and the kernels' operators in it; the program within 1e-5 of the live
    pipeline in this process; saved (MB), then a fresh process loads it with
    ``load_serving_fn`` and serves the 3 requests after a warm-up: within
-   1e-5 of the live detections, A and C launched twice each a request,
+   1e-5 of the live detections, A, C and NMS launched twice each a request,
    each request's latency beside the live pipeline's at the same size and
    phase 3's; one ``[serving export, phase 21]`` JSON line;
 22. one ``{"kernels": [...]}`` line (with each kernel's ``op_host_us``
@@ -215,8 +225,9 @@ from sparse_pooling_tpu_torch.configs.presets import people_pyramid_config, rcnn
 from sparse_pooling_tpu_torch.data.sparse_matrix import build_sparse_pooling_input
 from sparse_pooling_tpu_torch.data.pointcloud import trim_points_to_bucket
 from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame
+from sparse_pooling_tpu_torch.models import fusion_rcnn
 from sparse_pooling_tpu_torch.models import pipeline as pl
-from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool
+from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, nms, sparse_pool
 from sparse_pooling_tpu_torch.runtime import checkpoint as ckpt_mod
 from sparse_pooling_tpu_torch.runtime import trainer as tr
 from sparse_pooling_tpu_torch.runtime.summary import read_scalars
@@ -337,12 +348,16 @@ def new_result() -> dict:
             "library_host_us": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
 
 
-def add_times(res: dict, kernel: dict, plain: float, library: dict) -> None:
-    """Accumulate one call's times into ``res``."""
+def add_times(res: dict, kernel: dict, plain: float, library: dict | None) -> None:
+    """Accumulate one call's times into ``res``. ``library`` None: the kernel
+    has no library yardstick, and its library times stay unmeasured (null)."""
 
     for key, value in kernel.items():
         res[key] = res.get(key, 0.0) + value
     res["plain_ms"] += plain
+    if library is None:
+        res["library_ms"] = res["library_device_ms"] = res["library_host_us"] = None
+        return
     res["library_ms"] += library["ms"]
     res["library_device_ms"] += library["device_ms"]
     res["library_host_us"] += library["host_us"]
@@ -399,6 +414,7 @@ COUNTED = {
     "C": crop_resize.crop_and_resize_group_kernel,
     "A-bwd": sparse_pool.sparse_pool_patch_bwd_kernel,
     "C-bwd": crop_resize.crop_and_resize_group_bwd_kernel,
+    "NMS": nms.greedy_nms_kernel,
 }
 
 
@@ -432,7 +448,7 @@ def run_request(model, batch, anchors, cfg, ext):
 
 # name substrings -> category, first match wins (kernel names on the card)
 KERNEL_CATEGORIES = (
-    ("hand kernels A, B, C, A-bwd, C-bwd", ("patch_pool", "group_crop", "ell_pool")),
+    ("hand kernels A, B, C, A-bwd, C-bwd, NMS", ("patch_pool", "group_crop", "ell_pool", "greedy_nms")),
     ("convolution (cuDNN)", ("fprop", "conv", "nhwckrsc")),
     ("matmul (cuBLAS)", ("gemm",)),
     ("gather/scatter/index", ("scatter", "gather", "index")),
@@ -780,6 +796,40 @@ def kernel_c_wide_unit(device) -> None:
 
 
 ELL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}  # relative to max(|twin|, 1)
+
+
+def nms_phase(shapes, flush) -> dict:
+    """The greedy NMS kernel (``csrc/greedy_nms.cu``) at ``shapes``, a list of
+    (label, boxes, scores, max_outputs, iou_threshold) recorded from a
+    request: its indices and validity equal to the plain loop's on the card
+    and on the CPU, bit for bit; its times as the other kernels', the plain
+    loop's call time on the card, and the bound (its inputs read and its
+    outputs written once). No PyTorch call computes greedy NMS, so there is
+    no library yardstick. Returns the results summed over ``shapes``."""
+
+    res = new_result()
+    for label, boxes, scores, k, thr in shapes:
+        def kernel_call():
+            return nms.greedy_nms_kernel(boxes, scores, k, thr)
+
+        got = kernel_call()
+        torch.cuda.synchronize()
+        for dev in (boxes.device, torch.device("cpu")):
+            want = nms.nms_batch_plain(boxes.to(dev), scores.to(dev), k, thr)
+            check(torch.equal(got[0].cpu(), want.indices.cpu()) and torch.equal(got[1].cpu(), want.valid.cpu()),
+                  f"greedy NMS {label}: picks other than the plain loop's on {dev}")
+        kern = timings(kernel_call, flush)
+        op_host(res, f"NMS {label}", lambda: torch.ops.spt.greedy_nms(boxes, scores, k, thr), kernel_call)
+        plain = median_ms(lambda: nms.nms_batch_plain(boxes, scores, k, thr), reps=5, warmup=1)
+        need = nbytes(boxes, scores, *got)
+        bnd = add_bound(res, need, 0)
+        valid = got[1].sum(1)
+        print(f"  NMS {label} {tuple(scores.shape)} -> {k} at IoU {thr:g}: {int(valid.min())}-{int(valid.max())} "
+              f"valid picks a frame, the plain loop's bit for bit (card and CPU); kernel {timing_text(kern)} "
+              f"({1e3 * kern['device_ms'] / max(k, 1):.2f} us device a round); plain loop {plain:.4f} ms call; "
+              f"bound {bnd:.6f} ms ({need / 1e6:.3f} MB once)")
+        add_times(res, kern, plain, None)
+    return res
 
 
 def load_ell_baseline(path: str):
@@ -1824,15 +1874,29 @@ def rcnn_serving_phase(device, cars_serving):
     anchors = pl.static_anchor_grid(cfg, ext, device=device)
     check(anchors.shape[0] == 17600, f"{anchors.shape[0]} dense anchors a frame, not 88x100x2")
     requests = [make_batch(cfg, r, device) for r in range(REQUESTS)]
-    a_calls = []
-    with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls):
+    a_calls, nms_calls, rpn_calls = [], [], []
+    with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls), \
+            recording(nms, "greedy_nms_kernel", nms_calls), recording(fusion_rcnn, "top_k_nms_batch", rpn_calls):
         run_request(model, requests[0][1], anchors, cfg, ext)
     torch.cuda.synchronize()
     check(len(a_calls) == 2, f"an rcnn request reached kernel A {len(a_calls)} times, not twice")
+    check(len(nms_calls) == 2, f"an rcnn request reached the NMS kernel {len(nms_calls)} times, not twice")
     err = hold_a(a_calls, "rcnn serving")
     del a_calls
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    print("  rcnn serving: the greedy NMS kernel at the request's two calls")
+    res_nms = nms_phase([(name, *args) for name, args in zip(("rcnn RPN", "rcnn final"), nms_calls)], flush)
+    # off the serving path: the RPN's training size over the same candidates,
+    # and every anchor a candidate (the parity training step's NMS)
+    rpn_boxes, rpn_scores, _, rpn_thr = nms_calls[0]
+    all_boxes, all_scores = (t.contiguous() for t in rpn_calls[0][:2])
+    print("  rcnn: the greedy NMS kernel off the serving path")
+    res_nms_more = nms_phase([("rcnn training RPN", rpn_boxes, rpn_scores, cfg.rpn.train_nms_size, rpn_thr),
+                              ("every anchor", all_boxes, all_scores, 256, rpn_thr)], flush)
+    del nms_calls, rpn_calls, flush
     launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "rcnn serving")
     check(launches["A"] == 2 * REQUESTS, f"kernel A: {launches['A']} launches in {REQUESTS} rcnn requests")
+    check(launches["NMS"] == 2 * REQUESTS, f"the NMS kernel: {launches['NMS']} launches in {REQUESTS} rcnn requests")
     check(launches["C"] == launches["B"] == launches["A-bwd"] == launches["C-bwd"] == 0,
           "an rcnn request launched B, C or a backward")
     rows = profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)),
@@ -1843,7 +1907,8 @@ def rcnn_serving_phase(device, cars_serving):
         print(f"[rcnn serving] kernel A in the profiled rcnn request {a_ms:.4f} ms of device time "
               f"({sum(n for *_, n in rows['A'])} device kernels: count, scan, place and gather a call); in "
               f"phase 3's cars request {cars_a:.4f} ms")
-    return {"launches": launches, "max_abs_err": err, "request_ms": request_ms}
+    return {"launches": launches, "max_abs_err": err, "request_ms": request_ms, "NMS": res_nms,
+            "NMS_off_path": res_nms_more}
 
 
 def rcnn_training_phase(device):
@@ -1941,6 +2006,8 @@ def people_phase(device):
     del a_calls, c_calls
     launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "people")
     check(launches["A"] == 2 and launches["C"] == 2, "the people request did not launch A and C twice")
+    check(launches["NMS"] == 3, f"the people request launched the NMS kernel {launches['NMS']} times, not 3 "
+          "(the RPN's and one a class)")
     profile_phase(model, requests[0][1], anchors, cfg, ext, request_ms[0], label="people: where the time goes")
 
     # one training step of the preset (f32 parameters): C-bwd at 64 boxes a unit
@@ -2438,7 +2505,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 from sparse_pooling_tpu_torch.runtime import export
 from sparse_pooling_tpu_torch.models.pipeline import RawSample
-from sparse_pooling_tpu_torch.ops import crop_resize, sparse_pool
+from sparse_pooling_tpu_torch.ops import crop_resize, nms, sparse_pool
 t0 = time.perf_counter()
 fn = export.load_serving_fn(sys.argv[1])
 load_s = time.perf_counter() - t0
@@ -2450,6 +2517,7 @@ warm_s = time.perf_counter() - t0
 outs, ms, launches = [], [], []
 for batch in requests:
     a0, c0 = sparse_pool.sparse_pool_patch_kernel.launches, crop_resize.crop_and_resize_group_kernel.launches
+    n0 = nms.greedy_nms_kernel.launches
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2458,7 +2526,8 @@ for batch in requests:
     end.synchronize()
     ms.append(start.elapsed_time(end))
     launches.append({"A": sparse_pool.sparse_pool_patch_kernel.launches - a0,
-                     "C": crop_resize.crop_and_resize_group_kernel.launches - c0})
+                     "C": crop_resize.crop_and_resize_group_kernel.launches - c0,
+                     "NMS": nms.greedy_nms_kernel.launches - n0})
     outs.append({k: v.cpu() for k, v in det.items()})
 torch.save(outs, sys.argv[3])
 print(json.dumps({"load_s": load_s, "warm_s": warm_s, "request_ms": ms, "launches": launches}))
@@ -2527,7 +2596,7 @@ def export_phase(device, phase3_ms: list, phase3_launches: dict) -> dict:
              for n in gm.graph.nodes if n.op == "call_function"]
     n_nodes = len(calls)
     ops = sorted({str(n.target) for n in calls if str(n.target).startswith("spt.")})
-    check(ops == ["spt.group_crop.default", "spt.sparse_pool_patch.default"],
+    check(ops == ["spt.greedy_nms.default", "spt.group_crop.default", "spt.sparse_pool_patch.default"],
           f"the exported graph calls the kernels' operators {ops}")
     module = ep.module()
     in_process = max(detection_gap(module(*batch), want, f"exported request {r} in this process")
@@ -2560,15 +2629,16 @@ def export_phase(device, phase3_ms: list, phase3_launches: dict) -> dict:
           f"exported detections {max(gaps):.3e} (fresh process), {in_process:.3e} (this process) from the live "
           f"pipeline's, above {EXPORT_TOL:g}")
     for r, n in enumerate(child["launches"]):
-        check(n == {"A": 2, "C": 2}, f"served request {r}: launches {n}, not 2 of A and of C")
+        check(n == {"A": 2, "C": 2, "NMS": 2}, f"served request {r}: launches {n}, not 2 of A, C and NMS")
     print(f"[serving export] export_inference at full width, batch {BATCH}: {export_s:.1f} s, {n_nodes} graph "
-          f"calls (the NMS loops unrolled), the kernels' operators {ops}; saved {n_bytes / 1e6:.1f} MB in "
+          f"calls, the kernels' operators {ops}; saved {n_bytes / 1e6:.1f} MB in "
           f"{save_s:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])
                                            if v >= 0.05)
           + f" MB); this process's program within {in_process:.3e} of the live detections")
     print(f"[serving export] a fresh process ({child_s:.1f} s with its start): load {child['load_s']:.1f} s, "
           f"warm-up request {child['warm_s']:.2f} s; requests "
-          + ", ".join(f"{ms:.2f} ms (A {n['A']}, C {n['C']})" for ms, n in zip(child["request_ms"], child["launches"]))
+          + ", ".join(f"{ms:.2f} ms (A {n['A']}, C {n['C']}, NMS {n['NMS']})"
+                      for ms, n in zip(child["request_ms"], child["launches"]))
           + "; the live pipeline on the same padded requests in this process "
           + ", ".join(f"{ms:.2f}" for ms in live_ms) + " ms; phase 3's live requests (points trimmed to their "
           "bucket) " + ", ".join(f"{ms:.2f}" for ms in phase3_ms)
@@ -3053,12 +3123,14 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     requests = [make_batch(cfg, r, device) for r in range(REQUESTS)]
 
     # 2. warm-up request 0, recording the kernels' main-path inputs
-    a_calls, c_calls = [], []
+    a_calls, c_calls, nms_calls = [], [], []
     with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls), \
-            recording(crop_resize, "crop_and_resize_group_kernel", c_calls):
+            recording(crop_resize, "crop_and_resize_group_kernel", c_calls), \
+            recording(nms, "greedy_nms_kernel", nms_calls):
         run_request(model, requests[0][1], anchors, cfg, ext)
     torch.cuda.synchronize()
     check(len(a_calls) == 2 and len(c_calls) == 2, "warm-up did not reach kernels A and C twice")
+    check(len(nms_calls) == 2, f"warm-up reached the NMS kernel {len(nms_calls)} times, not twice")
     print("[kernels vs plain] (medians of 20, L2-warm unless marked L2-cold: a 128 MB write "
           "first; 'call': CUDA events around the call, as the caller sees it; 'device': the "
           f"same after a spin that covers the host's launches; 'host enqueue': host time per "
@@ -3068,6 +3140,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     res_a = kernel_a_phase(a_calls, flush, earlier_a)
     res_c, windows = kernel_c_phase(c_calls, flush)
     kernel_c_wide_unit(device)
+    res_nms_cars = nms_phase([(name, *args) for name, args in zip(("cars RPN", "cars final"), nms_calls)], flush)
+    del nms_calls
     floor = timings(lambda: torch.cuda._sleep(0))
     print(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) {timing_text(floor)}; "
           f"{device_split(lambda: torch.cuda._sleep(0))} kernel execution (torch.profiler)")
@@ -3103,7 +3177,7 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
 
     # 3. main path: 3 requests of batch 8, counts read around exactly these
     launches, request_ms = serve_requests(model, requests, anchors, cfg, ext, "main path")
-    for name, per_request in (("A", 2), ("C", 2), ("B", 0), ("A-bwd", 0), ("C-bwd", 0)):
+    for name, per_request in (("A", 2), ("C", 2), ("B", 0), ("A-bwd", 0), ("C-bwd", 0), ("NMS", 2)):
         check(launches[name] == per_request * REQUESTS,
               f"kernel {name}: {launches[name]} launches in {REQUESTS} requests, not {per_request} a request")
     launches_a, launches_c = launches["A"], launches["C"]
@@ -3190,6 +3264,10 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
          "sparse_pooling_tpu/ops/sparse_pool.py:196", train_launches["A-bwd"], res_a_bwd),
         ("group_crop_bwd", "sparse_pooling_tpu_torch/csrc/group_crop.cu",
          "sparse_pooling_tpu/ops/crop_resize.py:789", train_launches["C-bwd"], res_c_bwd),
+        # no pallas_call: the lax.fori_loop of _nms_batch; an rcnn request's
+        # two calls, launches over phase 10's requests
+        ("greedy_nms", "sparse_pooling_tpu_torch/csrc/greedy_nms.cu",
+         "sparse_pooling_tpu/ops/nms.py:_nms_batch", rcnn_serving["launches"]["NMS"], rcnn_serving["NMS"]),
     ]
     print("[ell one frame] " + json.dumps({"replaces": "sparse_pooling_tpu/ops/pallas_sparse_pool.py:70",
                                            **one_frame}))
@@ -3197,6 +3275,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     print(f"[ell batch {BATCH}] " + json.dumps(res_b))
     print("[A-bwd, both calls] " + json.dumps(res_a_bwd))
     print("[C-bwd, both calls] " + json.dumps(res_c_bwd))
+    print("[greedy NMS, cars request's two calls] " + json.dumps(res_nms_cars))
+    print("[greedy NMS, rcnn off the serving path] " + json.dumps(rcnn_serving["NMS_off_path"]))
     print("[rcnn and people paths] " + json.dumps({
         "rcnn_serving": {"launches": rcnn_serving["launches"], "max_abs_err_A": rcnn_serving["max_abs_err"],
                          "request_ms": rcnn_serving["request_ms"]},

@@ -67,6 +67,23 @@ __host__ __device__ __forceinline__ bool aligned(const void* p, size_t bytes) {
   return (reinterpret_cast<size_t>(p) & (bytes - 1)) == 0;
 }
 
+// Let the kernel Func take up to `bytes` of dynamic shared memory on the
+// current device. By default a block's static and dynamic shared memory
+// together may not pass 48 KB; the opened limit is a setting of the device,
+// so it is made once per kernel and device (callers launch only on tensors
+// of the current device).
+template <auto Func>
+inline cudaError_t open_smem(int bytes) {
+  constexpr int kDevices = 64;  // devices whose opened limit is remembered
+  static bool opened[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kDevices && opened[dev])) return err;
+  err = cudaFuncSetAttribute(Func, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kDevices) opened[dev] = true;
+  return err;
+}
+
 }  // namespace spt
 
 extern "C" const char* kernel_error_string(int code) {

@@ -53,7 +53,6 @@ constexpr int kMaxUnits = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemBytes = 48 * 1024;     // a block's target: several blocks an SM
 constexpr int kMaxSmem = 227 * 1024;      // dynamic shared memory a block may take
-constexpr int kDevices = 64;              // devices whose opened limit is remembered
 
 __device__ __forceinline__ float tent(float d) { return fmaxf(0.0f, 1.0f - fabsf(d)); }
 
@@ -218,20 +217,9 @@ int launch(const void* img_v, int B, int H, int W, int C, const float* boxes, in
   const size_t smem = (size_t)U * per_unit;
   const bool vec = C == 8 && spt::aligned(img, 16) && spt::aligned(out, 16);
   if (smem > (size_t)kSmemBytes) {
-    // above 48 KB only once the function allows it, a setting of the
-    // current device: once per instantiation and device
-    static bool opened[2][kDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    const cudaError_t err = vec ? spt::open_smem<group_crop<T, 8>>(kMaxSmem)
+                                : spt::open_smem<group_crop<T, 0>>(kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    if (dev >= kDevices || !opened[vec][dev]) {
-      err = vec ? cudaFuncSetAttribute(group_crop<T, 8>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)
-                : cudaFuncSetAttribute(group_crop<T, 0>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return (int)err;
-      if (dev < kDevices) opened[vec][dev] = true;
-    }
   }
   if (vec)
     group_crop<T, 8><<<blocks, kThreads, smem, stream>>>(img, H, W, C, boxes, units, P, V, CH,
@@ -634,24 +622,11 @@ cudaError_t launch_bwd_main(const T* g, int B, int H, int W, int C, const float*
   const int px = patch < W ? patch : W;
   const int t_size = (int)sizeof(T);
   const bool vec = C == 8 && spt::aligned(g, 16);
-  cudaError_t err;
   const unsigned blocks = (unsigned)((units + U - 1) / U);
   const size_t smem = (size_t)bwd_smem(U, Cc, py, px, C, V, CH, CW, t_size).total;
-  // above 48 KB only once the function allows it, which is a setting of
-  // the current device: once per instantiation and device (the wrappers
-  // launch only on tensors of the current device)
-  static bool opened[2][kDevices] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  const cudaError_t err = vec ? spt::open_smem<group_crop_bwd<T, 8>>(kMaxSmem)
+                              : spt::open_smem<group_crop_bwd<T, 0>>(kMaxSmem);
   if (err != cudaSuccess) return err;
-  if (dev >= kDevices || !opened[vec][dev]) {
-    err = vec ? cudaFuncSetAttribute(group_crop_bwd<T, 8>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)
-              : cudaFuncSetAttribute(group_crop_bwd<T, 0>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices) opened[vec][dev] = true;
-  }
   if (vec)
     group_crop_bwd<T, 8><<<blocks, kBwdThreads, smem, stream>>>(
         g, H, W, C, boxes, units, P, V, CH, CW, patch, U, Cc, stop, amax_bits, kbits, acc);

@@ -1,4 +1,4 @@
-"""Fixed-size greedy non-maximum suppression (plain PyTorch).
+"""Fixed-size greedy non-maximum suppression, one hand kernel a call.
 
 Port of ``sparse_pooling_tpu.ops.nms``. Conventions kept exactly:
   * always ``max_outputs`` indices plus a validity mask;
@@ -7,14 +7,26 @@ Port of ``sparse_pooling_tpu.ops.nms``. Conventions kept exactly:
   * suppression where IoU > threshold (and the pick itself) sets -inf;
   * the top-k prefilter is a stable descending sort, so ties (including the
     -inf of masked anchors) keep array order as ``lax.top_k`` does.
-A one-block-per-frame hand kernel is queued in ROADMAP.md.
+
+``nms_batch`` is the operator ``torch.ops.spt.greedy_nms``: a CUDA tensor
+launches ``csrc/greedy_nms.cu`` (one launch a call, a thread block a frame
+running every greedy round), a CPU tensor runs ``nms_batch_plain``, the
+greedy loop in plain PyTorch. The JAX package's loop is a ``lax.fori_loop``
+that XLA runs on the device; in eager PyTorch the plain loop dispatches about
+32 small ops a round from the host. The kernel gives the plain loop's
+indices and validity bit for bit (its f32 arithmetic rounds where the plain
+loop's ops round; ``csrc/greedy_nms.cu`` states the contract). Boxes and
+scores reach it in float32; the kernel takes no other dtype.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+
+from sparse_pooling_tpu_torch import kernels
 
 
 class NmsResult(NamedTuple):
@@ -22,13 +34,13 @@ class NmsResult(NamedTuple):
     valid: torch.Tensor  # [B, max_outputs] bool
 
 
-def nms_batch(
+def nms_batch_plain(
     boxes: torch.Tensor,  # [B, N, 4] [y1, x1, y2, x2]
     scores: torch.Tensor,  # [B, N]; -inf marks invalid boxes
     max_outputs: int,
     iou_threshold: float = 0.5,
 ) -> NmsResult:
-    """Batch-native greedy NMS."""
+    """Batch-native greedy NMS in plain PyTorch (the kernel's twin)."""
 
     b, n, _ = boxes.shape
     dev = boxes.device
@@ -54,6 +66,84 @@ def nms_batch(
         suppress = (iou > iou_threshold) | (arange_n[None, :] == bi)
         live = torch.where(ok[:, None] & suppress, -torch.inf, live)
     return NmsResult(out_idx, out_valid)
+
+
+@functools.cache
+def max_candidates() -> int:
+    """The most candidates a frame the kernel takes (it keeps a frame's
+    scores in shared memory, 4 bytes a candidate; the presets pass at most
+    17600, the rcnn dense grid). Read from the built library."""
+
+    return kernels.library("greedy_nms").greedy_nms_max_candidates()
+
+
+@kernels.counted
+def greedy_nms_kernel(
+    boxes: torch.Tensor,  # [B, N, 4] f32
+    scores: torch.Tensor,  # [B, N] f32
+    max_outputs: int,
+    iou_threshold: float,
+):
+    """The greedy NMS kernel on CUDA tensors, one launch for the batch ->
+    (indices int64 [B, max_outputs], valid bool [B, max_outputs]). B and
+    max_outputs are at least 1: an empty call launches nothing, and the
+    operator answers it without this wrapper."""
+
+    what = "greedy_nms"
+    device = kernels.require_cuda(boxes, scores, what=what)
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or scores.shape != boxes.shape[:2]:
+        raise ValueError(f"{what}: boxes [B,N,4] and scores [B,N] required")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"{what}: boxes and scores float32 required")
+    b, n, _ = boxes.shape
+    if b < 1 or max_outputs < 1:
+        raise ValueError(f"{what}: B = {b} and max_outputs = {max_outputs}, both must be >= 1")
+    limit = max_candidates()
+    if not 1 <= n <= limit:
+        raise ValueError(f"{what}: {n} candidates a frame, the kernel takes 1 to {limit}")
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()  # each box is one 16-byte load
+    out_idx = boxes.new_empty((b, max_outputs), dtype=torch.int64)
+    out_valid = boxes.new_empty((b, max_outputs), dtype=torch.bool)
+    lib = kernels.library("greedy_nms")
+    rc = lib.greedy_nms_launch(boxes.data_ptr(), scores.data_ptr(), b, n, max_outputs, iou_threshold,
+                               out_idx.data_ptr(), out_valid.data_ptr(), kernels.stream_ptr(device))
+    kernels.check(lib, rc, what)
+    return out_idx, out_valid
+
+
+def _greedy_nms_cuda(boxes, scores, max_outputs, iou_threshold):
+    """The operator on CUDA tensors: the kernel, or with no frame or no
+    output nothing to launch."""
+
+    if boxes.shape[0] and max_outputs:
+        return greedy_nms_kernel(boxes, scores, max_outputs, iou_threshold)
+    shape = (boxes.shape[0], max_outputs)
+    return boxes.new_zeros(shape, dtype=torch.int64), boxes.new_zeros(shape, dtype=torch.bool)
+
+
+kernels.OPS.define("greedy_nms(Tensor boxes, Tensor scores, int max_outputs, float iou_threshold) -> (Tensor, Tensor)")
+kernels.OPS.impl("greedy_nms", _greedy_nms_cuda, "CUDA")
+kernels.OPS.impl("greedy_nms", lambda *a: tuple(nms_batch_plain(*a)), "CPU")
+
+
+@torch.library.register_fake("spt::greedy_nms", lib=kernels.OPS)
+def _greedy_nms_fake(boxes, scores, max_outputs, iou_threshold):
+    shape = (boxes.shape[0], max_outputs)
+    return boxes.new_empty(shape, dtype=torch.int64), boxes.new_empty(shape, dtype=torch.bool)
+
+
+def nms_batch(
+    boxes: torch.Tensor,  # [B, N, 4] [y1, x1, y2, x2]
+    scores: torch.Tensor,  # [B, N]; -inf marks invalid boxes
+    max_outputs: int,
+    iou_threshold: float = 0.5,
+) -> NmsResult:
+    """Batch-native greedy NMS, ``torch.ops.spt.greedy_nms``: the kernel (one
+    launch) on CUDA tensors, ``nms_batch_plain`` on CPU tensors."""
+
+    return NmsResult(*torch.ops.spt.greedy_nms(boxes.contiguous(), scores.to(torch.float32).contiguous(),
+                                               max_outputs, iou_threshold))
 
 
 def top_k_nms_batch(

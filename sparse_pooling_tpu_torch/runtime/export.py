@@ -38,7 +38,7 @@ import torch
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, PipelineConfig
 from sparse_pooling_tpu_torch.data.dataset import MAX_GT_BOXES
 from sparse_pooling_tpu_torch.models import pipeline as pl
-from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool  # noqa: F401 (torch.ops.spt)
+from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, nms, sparse_pool  # noqa: F401 (torch.ops.spt)
 
 DEVICE_FILE = "spt_device"  # the extra file of a saved artifact naming its device type
 

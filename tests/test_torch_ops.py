@@ -233,6 +233,21 @@ def test_nms_batch_matches_jax(iou):
     np.testing.assert_array_equal(got.valid[0].numpy(), ref_valid)
 
 
+@pytest.mark.parametrize("iou", [0.1, 0.5])
+@pytest.mark.parametrize("max_outputs", [40, 70])
+def test_greedy_nms_operator_matches_jax(iou, max_outputs):
+    """``torch.ops.spt.greedy_nms`` on CPU tensors (the plain loop) gives the
+    JAX ``nms_batch``'s indices and validity, also past the valid picks."""
+
+    boxes, scores = _nms_inputs(0)
+    scores[1, :] = -np.inf
+    want = j_nms.nms_batch(jnp.array(boxes), jnp.array(scores), max_outputs, iou)
+    idx, valid = torch.ops.spt.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores), max_outputs, iou)
+    assert idx.dtype == torch.int64 and valid.dtype == torch.bool
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want.valid))
+
+
 @pytest.mark.parametrize("pre_top_k", [16, 48, 64])
 def test_top_k_nms_matches_jax(pre_top_k):
     """-inf entries tie inside the top-k prefilter when it reaches past the

@@ -1,6 +1,6 @@
 """The port's hand kernels as PyTorch operators (``torch.ops.spt.*``).
 
-``torch.library.opcheck`` on each of the five operators with CPU inputs at
+``torch.library.opcheck`` on each of the six operators with CPU inputs at
 edge shapes: the schema (no aliasing, no mutation), the fake implementation
 against the plain one (the CPU implementation) under fake tensors and
 dynamic shapes, and for kernels A and C the registered autograd (their
@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from sparse_pooling_tpu_torch import kernels
-from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, sparse_pool  # noqa: F401 (registers)
+from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, nms, sparse_pool  # noqa: F401 (registers)
 
-OPS = ("sparse_pool_patch", "sparse_pool_patch_bwd", "ell_sparse_pool", "group_crop", "group_crop_bwd")
+OPS = ("sparse_pool_patch", "sparse_pool_patch_bwd", "ell_sparse_pool", "group_crop", "group_crop_bwd", "greedy_nms")
 
 
 def _coo(b, hs, ws, p, t, seed):
@@ -115,8 +115,29 @@ def test_kernel_c_bwd_operator(shape, dtype):
         grad, boxes, (b, h, w, c), (ch, cw), patch, dtype))
 
 
+# (B, N, max_outputs, iou_threshold): one candidate, more outputs than
+# candidates, a frame with none valid, no output
+NMS_SHAPES = [(1, 1, 3, 0.5), (2, 9, 12, 0.3), (3, 40, 10, 0.01), (2, 5, 0, 0.5)]
+
+
+@pytest.mark.parametrize("shape", NMS_SHAPES)
+def test_greedy_nms_operator(shape):
+    b, n, k, thr = shape
+    rng = np.random.RandomState(b * n + k)
+    c = rng.uniform(0, 4, (b, n, 2))
+    boxes = torch.from_numpy(np.concatenate([c - 0.8, c + 0.8], -1).astype(np.float32))
+    scores = torch.from_numpy(rng.rand(b, n).astype(np.float32))
+    scores[-1, : n // 2 + 1] = -torch.inf
+    if b == 3:
+        scores[0] = -torch.inf
+    torch.library.opcheck(torch.ops.spt.greedy_nms.default, (boxes, scores, k, thr))
+    idx, valid = torch.ops.spt.greedy_nms(boxes, scores, k, thr)
+    want = nms.nms_batch_plain(boxes, scores, k, thr)
+    assert torch.equal(idx, want.indices) and torch.equal(valid, want.valid)
+
+
 def test_every_kernel_is_an_operator_of_one_namespace():
-    """Five operators under ``spt``, each with CPU and CUDA kernels and a
+    """Six operators under ``spt``, each with CPU and CUDA kernels and a
     fake one; A and C with autograd. The raw launchers still refuse CPU
     tensors (``tests/test_torch_port.py``)."""
 
