@@ -46,7 +46,7 @@ def readings(cell, seed: int, seconds: float, device, control: bool, fault: str 
         win = srv.window(seconds)
         srv.release()
     records = srv.reservoir.records()
-    ref = judge.Reference(cell.config, srv.state, device)
+    ref = judge.Reference(cell, srv.state, device)
     limits = cell.workload["limits"]
     side = "fault" if fault else "port"
     out = {"seed": seed, "requests": win["requests"], "judged": len(records)}
@@ -55,7 +55,7 @@ def readings(cell, seed: int, seconds: float, device, control: bool, fault: str 
     out[side] = judge.judge(records, srv.frames, ref, shares)
     out[f"{side}_correct"] = judge.verdict(out[side], limits)[0]
     if control:
-        low = judge.Reference(cell.config, srv.state, device, lower=torch.float8_e4m3fn)
+        low = judge.Reference(cell, srv.state, device, lower=torch.float8_e4m3fn)
         ctl = [low.record(r["request"], r["ids"], [srv.frames[i] for i in r["ids"]]) for r in records]
         del low
         out["control"] = judge.judge(ctl, srv.frames, ref, shares)

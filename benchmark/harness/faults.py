@@ -17,6 +17,7 @@ reads them on the card, the rehearsal tests on the CPU.
 
 from __future__ import annotations
 
+import importlib
 import math
 from contextlib import contextmanager
 from typing import Callable, Dict
@@ -57,20 +58,35 @@ def _heading(turn: Callable) -> Callable:
 
 
 def _wrong_pick() -> Callable:
-    from sparse_pooling_tpu_torch.models import detector
+    """Wraps the final NMS, ``nms_batch``, of every family's port modules."""
 
-    orig = detector.nms_batch
+    from families import every
 
-    def broken(*args, **kwargs):
-        res = orig(*args, **kwargs)
-        last = torch.clamp_min(res.valid.sum(dim=1) - 1, 0)
-        first = torch.gather(res.indices, 1, last[:, None])[:, 0]
-        indices = res.indices.clone()
-        indices[:, 0] = torch.where(res.valid[:, 0], first, indices[:, 0])
-        return type(res)(indices, res.valid)
+    modules = {}
+    for family in every():
+        for name in family.PORT_NMS_MODULES:
+            module = importlib.import_module(name)
+            if hasattr(module, "nms_batch"):
+                modules[name] = module
+    originals = {name: m.nms_batch for name, m in modules.items()}
 
-    detector.nms_batch = broken
-    return lambda: setattr(detector, "nms_batch", orig)
+    def broken(orig):
+        def call(*args, **kwargs):
+            res = orig(*args, **kwargs)
+            last = torch.clamp_min(res.valid.sum(dim=1) - 1, 0)
+            first = torch.gather(res.indices, 1, last[:, None])[:, 0]
+            indices = res.indices.clone()
+            indices[:, 0] = torch.where(res.valid[:, 0], first, indices[:, 0])
+            return type(res)(indices, res.valid)
+        return call
+
+    for name, module in modules.items():
+        module.nms_batch = broken(originals[name])
+
+    def undo():
+        for name, module in modules.items():
+            module.nms_batch = originals[name]
+    return undo
 
 
 FAULTS: Dict[str, Callable[[], Callable]] = {

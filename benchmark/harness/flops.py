@@ -1,13 +1,14 @@
 """The model's FLOPs a frame, counted from the configuration's shapes.
 
 Counts the multiply-adds (2 FLOPs each) of every conv, transposed conv and
-dense layer of a serving forward: both branches' encoders and decoders, both
-SHPL fusion layers' 1x1 convs, the RPN (the AVOD family's ROI head over every
-anchor slot and its ROI projections; the rcnn family's dense conv head), and
-the stage-2 FC stack and heads over every proposal slot. A transposed conv
-counts its input pixels, as PyTorch's flop counter does. The count depends on
-the shapes alone, so it is the same whatever implements them; the crops and
-the SHPL pool's own arithmetic are not model FLOPs and are not counted.
+dense layer of a serving forward: both branches' encoders and decoders, the
+SHPL fusion layers' 1x1 convs, the RPN, and the stage-2 FC stack and heads
+over every proposal slot. The counts the families share are here; each
+family file (``families/<architecture>.py``) adds its RPN's and sums them. A
+transposed conv counts its input pixels, as PyTorch's flop counter does. The
+count depends on the shapes alone, so it is the same whatever implements
+them; the crops and the SHPL pool's own arithmetic are not model FLOPs and
+are not counted.
 """
 
 from __future__ import annotations
@@ -52,50 +53,38 @@ def branch_flops(cfg, in_ch: int, h: int, w: int) -> tuple:
     return total, mid_hw, bb.channels[-1]
 
 
-def forward_flops(cfg, extents) -> int:
-    """FLOPs of one frame's serving forward (``cfg``: a ModelConfig)."""
+def branches_flops(cfg, extents) -> tuple:
+    """(FLOPs of the BEV and image branches, the BEV branch's mid lattice,
+    the image branch's, the mid channels)."""
 
     bh, bw = cfg.bev.padded_hw(extents)
     bev, bev_mid, mid = branch_flops(cfg, cfg.bev.num_channels, bh, bw)
     img, img_mid, _ = branch_flops(cfg, cfg.image.channels, cfg.image.height, cfg.image.width)
-    total = bev + img
+    return bev + img, bev_mid, img_mid, mid
+
+
+def fusion_flops(cfg, mid: int, directions) -> int:
+    """The SHPL fusion layers' 1x1 convs: one a direction ((target h, w),
+    (source h, w)), the source's projection to ``pool_channels`` where it is
+    narrower than ``mid``, then the mix of target and pooled channels."""
+
     sp = cfg.sparse_pool
     pooled = sp.pool_channels if sp.pool_channels and mid > sp.pool_channels else mid
-    directions = [(bev_mid, img_mid)]
-    if cfg.architecture == "rcnn" or sp.bev_to_img:
-        directions.append((img_mid, bev_mid))
+    total = 0
     for (th, tw), (sh, sw) in directions:
         if pooled != mid:
             total += _conv(1, mid, pooled, sh, sw)
         total += _conv(1, mid + pooled, mid, th, tw)
+    return total
 
-    ds, out_c = cfg.backbone.decode_stride, cfg.backbone.out_channels
-    n_var = len(cfg.anchors.sizes) * len(cfg.anchors.rotations)
-    if cfg.architecture == "rcnn":
-        fc = cfg.rpn.fusion_channels
-        h, w = bev_mid
-        total += _conv(3, mid, fc, h, w) + _conv(1, fc, 2 * n_var, h, w) + _conv(1, fc, 6 * n_var, h, w)
-        box_dim = {"offsets": 6, "box_4c": 10, "box_8c": 24}[cfg.avod.box_rep]
-        s2_views, s2_in = 1, cfg.avod.roi_size ** 2 * out_c
-    else:
-        roi_c = out_c
-        if cfg.rpn.roi_channels and out_c > cfg.rpn.roi_channels:
-            lattices = {"bev": (bh, bw), "img": (cfg.image.height, cfg.image.width)}
-            for view, stride in (("bev", cfg.rpn.bev_roi_stride), ("img", cfg.rpn.img_roi_stride)):
-                if stride > 1:
-                    roi_c = cfg.rpn.roi_channels
-                    h, w = lattices[view]
-                    total += _conv(1, out_c, roi_c, h // stride, w // stride)
-        s = cfg.rpn.proposal_roi_size
-        fc = cfg.rpn.fusion_channels
-        per_anchor = _dense(s * s * roi_c, fc) + _dense(fc, fc) + _dense(fc, 2) + _dense(fc, 6)
-        total += cfg.anchors.max_anchors * per_anchor
-        box_dim = {"box_4c": 10, "box_8c": 24}[cfg.avod.box_rep]
-        s2_views, s2_in = 2, cfg.avod.roi_size ** 2 * out_c
 
-    widths = [s2_in, *cfg.avod.fc_layers]
-    fusion_type = cfg.avod.fusion_type if cfg.architecture != "rcnn" else "early"
-    mult = 2 if s2_views > 1 and cfg.avod.fusion_method == "concat" else 1
+def stage2_flops(cfg, views: int, in_features: int, fusion_type: str, box_dim: int) -> int:
+    """The stage-2 FC stack and heads over every proposal slot
+    (``rpn.eval_nms_size``): ``views`` crops of ``in_features`` each, fused
+    ``early`` (one stack), ``late`` or ``deep`` (a stack a view)."""
+
+    widths = [in_features, *cfg.avod.fc_layers]
+    mult = 2 if views > 1 and cfg.avod.fusion_method == "concat" else 1
     stack = 0
     if fusion_type not in ("late", "deep"):
         widths[0] *= mult
@@ -104,8 +93,18 @@ def forward_flops(cfg, extents) -> int:
     else:
         for i in range(len(widths) - 1):
             cin = widths[i] * (mult if fusion_type == "deep" else 1)
-            stack += s2_views * _dense(cin, widths[i + 1])
+            stack += views * _dense(cin, widths[i + 1])
         out = widths[-1] * mult
     heads = cfg.num_classes + 1 + box_dim + 2 + (2 if cfg.avod.explicit_flip_head else 0)
-    total += cfg.rpn.eval_nms_size * (stack + _dense(out, heads))
-    return int(total)
+    return cfg.rpn.eval_nms_size * (stack + _dense(out, heads))
+
+
+def forward_flops(cfg, extents, family=None) -> int:
+    """FLOPs of one frame's serving forward (``cfg``: a ModelConfig), as
+    its family file counts them (``families/<architecture>.py``)."""
+
+    if family is None:
+        from families import load
+
+        family = load(cfg.architecture)
+    return int(family.flops(cfg, extents))

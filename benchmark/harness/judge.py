@@ -32,11 +32,11 @@ picks are: how far the reference's flip logit of the port's side lies below
 its best.
 
 The numbers compared, each the widest over the sampled requests:
-  inputs     model inputs (BEV maps, image, SHPL tables, anchors): the largest
-             gap over the largest value of the tensor; 1 where an index or a
-             mask differs;
-  fusion     both SHPL fusion layers' outputs (the pooled features through
-             kernel A, mixed): relative L2 gap;
+  inputs     model inputs (BEV maps, image, SHPL tables, anchors, and those
+             the family adds): the largest gap over the largest value of the
+             tensor; 1 where an index or a mask differs;
+  fusion     the family's SHPL fusion layers' outputs (the pooled features
+             through kernel A, mixed): the widest relative L2 gap;
   rpn        the RPN's last hidden features at the valid anchors (the AVOD
              family's FC over the fused crops of kernel C, the rcnn family's
              conv over the fused map): relative L2 gap;
@@ -54,7 +54,8 @@ The numbers compared, each the widest over the sampled requests:
   scores     the final scores' largest gap (probability).
 
 ``verdict`` holds readings against a cell's limits, for a run and for the
-control alike.
+control alike. What differs by detector family (the layers read, the inputs
+it adds) comes from the cell's family file (``families/<architecture>.py``).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ import numpy as np
 import torch
 
 from reference import pipeline as ref_pl
-from reference.config import AreaExtents, pipeline_config_from_dict
+from reference.config import AreaExtents
 from reference.encoders import heading_flip_bit
 from reference.nms import NmsResult
 
@@ -132,24 +133,30 @@ def pick_gap(boxes: torch.Tensor, scores: torch.Tensor, indices: torch.Tensor, v
     return _finite(worst.max().item())
 
 
-def feature_layers(model) -> Dict[str, str]:
+def feature_layers(model, family) -> Dict[str, str]:
     """The layers whose outputs feed the RPN's and stage 2's heads, by the
-    module names that the port and the reference share."""
+    module names that the port and the reference share (the family's, where
+    the model has them)."""
 
     names = dict(model.named_modules())
-    n_fc = sum(1 for n in names if n.startswith("stage2_head.fc") and n[len("stage2_head.fc"):].isdigit())
-    picks = {"rpn": ("rpn_head.fc2", "rpn_head.rpn_conv"), "s2": (f"stage2_head.fc{n_fc}",)}
-    return {key: next(n for n in cands if n in names) for key, cands in picks.items()
-            if any(n in names for n in cands)}
+    return {key: name for key, name in family.feature_layers(set(names)).items() if name in names}
 
 
-class FeatureHooks:
-    """Keeps the outputs of ``feature_layers`` in ``self.out``."""
+def fusion_layers(model, family) -> Dict[str, str]:
+    """The family's SHPL fusion layers that the model has, by name."""
 
-    def __init__(self, model):
+    names = dict(model.named_modules())
+    return {name: name for name in family.FUSION_LAYERS if name in names}
+
+
+class LayerHooks:
+    """Keeps the outputs of the layers ``{key: module name}`` in
+    ``self.out``."""
+
+    def __init__(self, model, layers: Dict[str, str]):
         self.out: Dict[str, torch.Tensor] = {}
         modules = dict(model.named_modules())
-        for key, name in feature_layers(model).items():
+        for key, name in layers.items():
             modules[name].register_forward_hook(self._hook(key))
 
     def _hook(self, key):
@@ -207,46 +214,89 @@ def verdict(readings: Dict[str, float], limits: Dict[str, float]):
     return all(math.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values()), checks
 
 
-def _coo(coo) -> Dict[str, torch.Tensor]:
-    return {"rows": coo.rows, "cols": coo.cols, "vals": coo.vals}
+# the model inputs every family has; a family file's INPUTS add to them
+SHARED_INPUTS = ("bev_input", "bev_pre_packed", "image", "anchors", "anchor_valid", "m_bev", "m_fv")
 
 
-def inputs_gap(port: Dict, ref: Dict) -> float:
-    if bool(port["bev_pre_packed"]) != bool(ref["bev_pre_packed"]):
-        return 1.0
+def input_keys(family) -> tuple:
+    return SHARED_INPUTS + tuple(family.INPUTS)
+
+
+def recorded_input(value):
+    """An input as a record keeps it: a COO table (``rows``, ``cols``,
+    ``vals``) as a dict of its tensors, anything else as it is."""
+
+    if all(hasattr(value, k) for k in ("rows", "cols", "vals")):
+        return {"rows": value.rows, "cols": value.cols, "vals": value.vals}
+    return value
+
+
+def inputs_gap(port: Dict, ref: Dict, keys: Sequence[str]) -> float:
+    """1 where a flag, a mask, an index tensor or a COO table's indices
+    differ, or a shape; else the largest of each float tensor's (and COO
+    table's values') gap over its largest value."""
+
     gaps = [0.0]
-    for key in ("anchor_valid",):
-        if not torch.equal(port[key].cpu(), ref[key].cpu()):
-            return 1.0
-    for view in ("m_bev", "m_fv"):
-        pc, rc = port[view], _coo(ref[view])
-        for key in ("rows", "cols"):
-            if pc[key].shape != rc[key].shape or not torch.equal(pc[key].cpu(), rc[key].cpu()):
+    for key in keys:
+        p, r = port[key], recorded_input(ref[key])
+        if isinstance(r, dict):  # a COO table
+            for k in ("rows", "cols"):
+                if p[k].shape != r[k].shape or not torch.equal(p[k].cpu(), r[k].cpu()):
+                    return 1.0
+            gaps.append(rel_max(p["vals"], r["vals"]))
+        elif not isinstance(r, torch.Tensor):
+            if bool(p) != bool(r):
                 return 1.0
-        gaps.append(rel_max(pc["vals"], rc["vals"]))
-    for key in ("bev_input", "image", "anchors"):
-        if port[key].shape != ref[key].shape:
-            return 1.0
-        gaps.append(rel_max(port[key], ref[key]))
+        elif not r.is_floating_point():
+            if not torch.equal(p.cpu(), r.cpu()):
+                return 1.0
+        else:
+            if p.shape != r.shape:
+                return 1.0
+            gaps.append(rel_max(p, r))
     return _finite(max(gaps))
 
 
+def fusion_gap(port: Dict, ref: Dict) -> float:
+    """The widest relative L2 gap of the fusion layers' outputs; inf where
+    the two sides hold different layers."""
+
+    if set(port) != set(ref):
+        return float("inf")
+    return max((rel_l2(port[k], ref[k]) for k in ref), default=0.0)
+
+
+def _bf16_rounded(value):
+    """A float tensor, or a COO table's values, rounded through bfloat16;
+    anything else as it is."""
+
+    def r(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+    if dataclasses.is_dataclass(value) and hasattr(value, "vals"):
+        return dataclasses.replace(value, vals=r(value.vals))
+    if isinstance(value, torch.Tensor) and value.is_floating_point():
+        return r(value)
+    return value
+
+
 class Reference:
-    """The float32 reference of one configuration file, with the run's
+    """The float32 reference of a cell's configuration, with the run's
     weights; ``lower`` makes it the control (float8 layers, bfloat16 inputs)."""
 
-    def __init__(self, config: Dict, state: Dict[str, torch.Tensor], device, lower=None):
-        pipe = pipeline_config_from_dict(config["pipeline"])
-        self.cfg = pipe.model
+    def __init__(self, cell, state: Dict[str, torch.Tensor], device, lower=None):
+        config = cell.config
+        self.cfg, self.family = cell.model_cfg, cell.family
         self.ext = AreaExtents(**config["extents"]) if "extents" in config else AreaExtents()
         self.device = device
-        self.model = ref_pl.make_model(self.cfg, self.ext, device)
+        self.model = ref_pl.make_model(self.cfg, self.ext, device, self.family)
         self.model.load_state_dict({k: v.float() for k, v in state.items()})
         self.lower = lower
         ref_pl.set_lower(self.model, lower)
-        self.anchors = ref_pl.static_anchor_grid(self.cfg, self.ext, device)
+        self.anchors = ref_pl.static_anchor_grid(self.cfg, self.ext, device, self.family)
         self.buckets = self.cfg.sparse_pool.buckets
-        self.features = FeatureHooks(self.model)
+        self.inputs = input_keys(self.family)
+        self.features = LayerHooks(self.model, feature_layers(self.model, self.family))
+        self.fused = LayerHooks(self.model, fusion_layers(self.model, self.family))
 
     @torch.no_grad()
     def run(self, frames: Sequence[Dict[str, np.ndarray]], rpn_picks=None, final_picks=None, proposals=None):
@@ -255,18 +305,13 @@ class Reference:
 
         batch = ref_pl.stack_frames(frames, self.buckets, self.device)
         keep = torch.ones((len(frames), 2), dtype=torch.float32, device=self.device)
-        inputs = ref_pl.build_model_inputs_batch(batch, self.anchors, keep, self.cfg, self.ext)
+        inputs = ref_pl.build_model_inputs_batch(batch, self.anchors, keep, self.cfg, self.ext, self.family)
         if self.lower is not None:  # the control computes its f32 stages in bf16
-            def r(t):
-                return t.to(torch.bfloat16).to(t.dtype)
-            inputs = dict(inputs, bev_input=r(inputs["bev_input"]), image=r(inputs["image"]),
-                          anchors=r(inputs["anchors"]))
-            for view in ("m_bev", "m_fv"):
-                coo = inputs[view]
-                inputs[view] = dataclasses.replace(coo, vals=r(coo.vals))
+            inputs = dict(inputs, **{k: _bf16_rounded(inputs[k]) for k in self.inputs})
         out = self.model(inputs, picks=rpn_picks, proposals=proposals)
-        out["features"] = dict(self.features.out)
-        det = ref_pl.decode_batch(out, batch.ground_plane, self.cfg, self.ext, picks=final_picks)
+        out["features"], out["fused"] = dict(self.features.out), dict(self.fused.out)
+        det = ref_pl.decode_batch(out, batch.ground_plane, self.cfg, self.ext, picks=final_picks,
+                                  family=self.family)
         return inputs, out, det
 
     def record(self, request: int, ids: List[int], frames) -> Dict:
@@ -276,10 +321,8 @@ class Reference:
         inputs, out, det = self.run(frames)
         return {
             "request": request, "ids": list(ids),
-            "inputs": {**{k: inputs[k] for k in ("bev_input", "bev_pre_packed", "image", "anchors",
-                                                 "anchor_valid")},
-                       "m_bev": _coo(inputs["m_bev"]), "m_fv": _coo(inputs["m_fv"])},
-            "fused": {"bev": out["bev_fused"], "img": out["img_fused"]},
+            "inputs": {k: recorded_input(inputs[k]) for k in self.inputs},
+            "fused": out["fused"],
             "features": out["features"],
             "out": {k: out[k] for k in OUT_KEYS if k in out},
             "rpn": (out["rpn_picks"].indices, out["rpn_picks"].valid),
@@ -320,9 +363,8 @@ def judge(records: List[Dict], frames: Sequence[Dict[str, np.ndarray]], ref: Ref
         final_picks = [NmsResult(*p) for p in rec["final"]]
         inputs, out, det = ref.run([frames[i] for i in rec["ids"]], rpn_picks, final_picks,
                                    rec["out"]["proposals"].float())
-        take("inputs", inputs_gap(rec["inputs"], inputs))
-        take("fusion", max(rel_l2(rec["fused"]["bev"], out["bev_fused"]),
-                           rel_l2(rec["fused"]["img"], out["img_fused"])))
+        take("inputs", inputs_gap(rec["inputs"], inputs, ref.inputs))
+        take("fusion", fusion_gap(rec["fused"], out["fused"]))
         po, pf, rf = rec["out"], rec["features"], out["features"]
         av = out["anchor_valid"]
         if pf["rpn"].shape != rf["rpn"].shape or po["objectness"].shape != out["objectness"].shape:

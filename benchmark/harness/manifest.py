@@ -1,9 +1,11 @@
 """Where the benchmark's data lives, and how a cell's files are read.
 
-Everything that belongs to one configuration, traffic mix, cell or per-layer
-metric is a file of its own, found by the name ``BENCHMARK.json`` gives it:
+Everything that belongs to one configuration, traffic mix, cell, per-layer
+metric, detector family or hand kernel is a file of its own, found by the
+name ``BENCHMARK.json`` or a configuration gives it:
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``workloads/<cell>.json``, ``metrics/<metric>.py``.
+``workloads/<cell>.json``, ``metrics/<metric>.py``,
+``families/<architecture>.py``, ``kernels/<op>.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,11 @@ import importlib.util
 import json
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
+
+from families import load
+from reference.config import pipeline_config_from_dict
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 # top-level module names a run may not load, compared whole: the port's name
@@ -38,6 +44,9 @@ class Cell:
         self.name = name
         self.config = read_json(self.bench_dir / "configs" / f"{self.workload['config']}.json")
         self.traffic = read_json(self.bench_dir / "traffic" / f"{self.workload['traffic']}.json")
+        # the reference's parse of the configuration, and its family's file
+        self.model_cfg = pipeline_config_from_dict(self.config["pipeline"], self.bench_dir).model
+        self.family = load(self.model_cfg.architecture, self.bench_dir)
 
     def end_to_end(self) -> List[Dict]:
         """The manifest's end-to-end metrics this cell reports."""
@@ -52,11 +61,20 @@ class Cell:
     def reader(self, metric: str) -> Callable:
         """``read`` of ``metrics/<metric>.py``."""
 
-        path = self.bench_dir / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"bench_metric_{metric.replace('.', '_')}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(self.bench_dir / "metrics" / f"{metric}.py", "bench_metric").read
+
+    def kernels(self) -> Dict[str, ModuleType]:
+        """Each hand kernel's file ``kernels/<op>.py`` by its op: ``PORT``,
+        the port's (module, attribute) to record, and ``bound``."""
+
+        return {p.stem: _load(p, "bench_kernel") for p in sorted((self.bench_dir / "kernels").glob("*.py"))}
+
+
+def _load(path: Path, prefix: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{path.stem.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def forbidden_loaded() -> List[str]:

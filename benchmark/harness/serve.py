@@ -15,13 +15,20 @@ request's stages, and a few more requests after the window run under
 
 The judge needs the port's intermediate results: ``Recorder`` keeps a
 reference to what the NMS calls, the fusion layers and the layers feeding the
-heads return (a wrapper and four forward hooks, a few microseconds a request), and a seeded reservoir keeps
+heads return (wrappers of the family's port modules' NMS calls and four
+forward hooks, a few microseconds a request), and a seeded reservoir keeps
 the records of ``judge_requests`` requests, and the one with the most points,
-copied to the host so that they do not raise the device's peak.
+copied to the host so that they do not raise the device's peak. What differs
+by detector family comes from the cell's family file
+(``families/<architecture>.py``); each hand kernel whose calls the profiled
+requests record has a file ``kernels/<op>.py``. With ``--trace 1`` the
+program's own spans are read too (``spans.py``): after the window, before
+any profiler.
 """
 
 from __future__ import annotations
 
+import importlib
 import time
 from contextlib import nullcontext
 from typing import Dict, List
@@ -31,29 +38,27 @@ import torch
 
 from traffic import ServeSchedule, frame_pool
 
-from . import devtrace, judge, weights
+from . import devtrace, judge, spans, weights
 from .flops import forward_flops
 from .peaks import BF16_FLOPS
-from .roofline import BOUNDS
 
 
 class Recorder:
     """Keeps what the port's timed path returns at the NMS calls and the
     fusion layers of the current request."""
 
-    def __init__(self, model, modules):
+    def __init__(self, model, family):
         self.current: Dict = {}
         self._undo = []
-        for module in modules:
+        for module in map(importlib.import_module, family.PORT_NMS_MODULES):
             for name in ("top_k_nms_batch", "nms_batch"):
                 if hasattr(module, name):
                     self._wrap(module, name)
-        for key, layer in (("bev", model.bev_fusion), ("img", getattr(model, "img_fusion", None))):
-            if layer is not None:
-                self._undo.append(layer.register_forward_hook(self._hook("fused", key)).remove)
         modules = dict(model.named_modules())
-        for key, name in judge.feature_layers(model).items():
-            self._undo.append(modules[name].register_forward_hook(self._hook("features", key)).remove)
+        for group, layers in (("fused", judge.fusion_layers(model, family)),
+                              ("features", judge.feature_layers(model, family))):
+            for key, name in layers.items():
+                self._undo.append(modules[name].register_forward_hook(self._hook(group, key)).remove)
 
     def _wrap(self, module, name):
         orig = getattr(module, name)
@@ -122,14 +127,14 @@ class ServeRun:
         from sparse_pooling_tpu_torch import kernels
         from sparse_pooling_tpu_torch.configs.config import AreaExtents, pipeline_config_from_dict
         from sparse_pooling_tpu_torch.data.pointcloud import trim_points_to_bucket
-        from sparse_pooling_tpu_torch.models import detector, fusion_rcnn
         from sparse_pooling_tpu_torch.models import pipeline as pl
-        from sparse_pooling_tpu_torch.ops import crop_resize, sparse_pool
 
         self.cell, self.seed, self.device, self.trace = cell, int(seed), device, trace
+        self.family = cell.family
         self.pl, self.trim = pl, trim_points_to_bucket
-        self.hand_modules = {"sparse_pool_patch": (sparse_pool, "sparse_pool_patch_kernel"),
-                             "group_crop": (crop_resize, "crop_and_resize_group_kernel")}
+        # op -> (port module, launcher attribute, bound) of each hand kernel's file
+        self.hand_modules = {op: (importlib.import_module(k.PORT[0]), k.PORT[1], k.bound)
+                             for op, k in cell.kernels().items()}
         if device.type == "cuda":
             kernels.build_all()
         self.cfg = pipeline_config_from_dict(cell.config["pipeline"]).model
@@ -139,11 +144,14 @@ class ServeRun:
         self.model.load_state_dict(self.state)
         self.anchors = pl.static_anchor_grid(self.cfg, self.ext, device=device)
         self.mix = cell.traffic
-        self.frames = frame_pool(self.mix, self.cfg, self.seed)
+        self.frames = frame_pool(self.mix, self.cfg, self.seed, self.family)
         self.schedule = ServeSchedule(self.mix, self.seed)
-        self.recorder = Recorder(self.model, (detector, fusion_rcnn))
+        self.recorder = Recorder(self.model, self.family)
         self.reservoir = Reservoir(int(cell.workload["judge_requests"]), self.seed)
-        self.flops_per_frame = forward_flops(self.cfg, self.ext)
+        self.inputs = judge.input_keys(self.family)
+        # the yardstick's counts read the reference's parse of the configuration
+        self.flops_per_frame = forward_flops(cell.model_cfg, self.ext, self.family)
+        self.nms_rounds = int(self.family.nms_rounds(cell.model_cfg))
 
     # one request ---------------------------------------------------------
     def request(self, ids: List[int], events=None, ranges=False) -> Dict[str, np.ndarray]:
@@ -185,10 +193,7 @@ class ServeRun:
         cur = self.recorder.current
         return _host({
             "request": i, "ids": list(ids),
-            "inputs": {**{k: inputs[k] for k in ("bev_input", "bev_pre_packed", "image", "anchors",
-                                                 "anchor_valid")},
-                       "m_bev": {k: getattr(inputs["m_bev"], k) for k in ("rows", "cols", "vals")},
-                       "m_fv": {k: getattr(inputs["m_fv"], k) for k in ("rows", "cols", "vals")}},
+            "inputs": {k: judge.recorded_input(inputs[k]) for k in self.inputs},
             "fused": cur["fused"], "features": cur["features"], "rpn": cur["rpn"], "final": cur["final"],
             "out": {k: out[k] for k in judge.OUT_KEYS if k in out},
             "det": {k: torch.from_numpy(v) for k, v in host.items()},
@@ -270,7 +275,7 @@ class ServeRun:
 
         calls = {name: [] for name in self.hand_modules}
         originals = {}
-        for name, (module, attr) in self.hand_modules.items():
+        for name, (module, attr, _) in self.hand_modules.items():
             orig = originals[name] = getattr(module, attr)
 
             def rec(*args, _orig=orig, _store=calls[name], **kwargs):
@@ -289,11 +294,12 @@ class ServeRun:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
         finally:
-            for name, (module, attr) in self.hand_modules.items():
+            for name, (module, attr, _) in reversed(list(self.hand_modules.items())):
                 setattr(module, attr, originals[name])
         trace = devtrace.reduce(prof.events())
         trace["requests"] = n_requests
-        trace["bounds"] = {name: [BOUNDS[name](*args) for args in store] for name, store in calls.items()}
+        trace["bounds"] = {name: [self.hand_modules[name][2](*args) for args in store]
+                           for name, store in calls.items()}
         return trace
 
     def release(self) -> None:
@@ -316,13 +322,21 @@ def run(cell, seed: int, seconds: float, trace: bool, device, setup_clock) -> Di
     srv.warm_up()
     setup_s = setup_clock()
     win = srv.window(seconds)
-    prof = srv.profile(int(cell.workload["profiled_requests"]), win["requests"]) if trace else {}
+    prof, span_data = {}, None
+    if trace:
+        profiled = int(cell.workload["profiled_requests"])
+        # the spans before any profiler session: one slows the requests after it
+        collected = spans.collected(srv, win["requests"])
+        prof = srv.profile(profiled, win["requests"])
+        span_data = {"collected": collected,
+                     "profiled": spans.profiled(srv, win["requests"] + spans.SPAN_REQUESTS, profiled)}
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     srv.release()
-    ref = judge.Reference(cell.config, srv.state, device)
+    ref = judge.Reference(cell, srv.state, device)
     readings = judge.judge(srv.reservoir.records(), srv.frames, ref)
     run_data = {
-        "kind": "serve", "window": win, "profile": prof, "setup_s": setup_s, "warm_requests": srv.warm_requests,
+        "kind": "serve", "window": win, "profile": prof, "spans": span_data, "setup_s": setup_s,
+        "warm_requests": srv.warm_requests,
         "flops_per_frame": srv.flops_per_frame, "peak_flops": BF16_FLOPS,
         "serve_ms_p50": percentile(win["latency_ms"], 50), "serve_ms_p95": percentile(win["latency_ms"], 95),
     }

@@ -1,18 +1,21 @@
 """The program's own spans in a serving cell
-(``sparse_pooling_tpu_torch.runtime.profiling``).
+(``sparse_pooling_tpu_torch.runtime.profiling``), read in a ``--trace 1``
+run.
 
 After a cell's window, :func:`collected` serves ``SPAN_REQUESTS`` more
 requests of the schedule with the port's spans collected and no profiler:
-each span's host, device-stream and self milliseconds, and the greedy NMS
-rounds a request (the cell's ``eval_nms_size + classes x nms_size``). It
-runs before any ``torch.profiler`` session of the process:
-after one, requests on an H100 ran 16-41% slower (PERF.md, section 6).
+each span's host, device-stream and self milliseconds, the greedy NMS
+rounds a request (the family file's ``nms_rounds``) and the family's NMS
+spans. It runs before any ``torch.profiler`` session of the process: after
+one, requests on an H100 ran 16-41% slower (PERF.md, section 6).
 :func:`profiled` serves a few under ``torch.profiler`` with the spans on as
 ``spt.<name>`` ranges: each device row's launch, and each idle gap of the
 device, is put down to the innermost span open when it began. On the CPU of
 the tests' rehearsal the ops' own intervals stand for the device rows.
-:func:`readings` reduces both to per-layer numbers; ``span_split.py`` runs
-them. A program without ``profiling.span`` gives no numbers.
+``run["spans"]`` holds both. :func:`reading` gives a span's number by its
+name, so that a metric file for a span is two lines; :func:`nms_round_us`
+and :func:`nms_idle_share` read the NMS spans together. A program without
+``profiling.span`` gives no numbers.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from .devtrace import _union
 SPAN_REQUESTS = 48
 STRETCH = "bench.spans"
 RANGE_PREFIX = "spt."
-NMS_SPANS = ("detector.rpn_nms", "decode.nms")
 OUTSIDE = "none"  # no span open
 
 
@@ -89,7 +91,8 @@ def attribute(events, on_card: bool) -> Dict:
 def collected(srv, first: int, n: int = SPAN_REQUESTS) -> Optional[Dict]:
     """``n`` requests of the schedule from request ``first`` on with the
     port's spans collected: the collection's summary, each request's
-    latency and its NMS rounds. ``None`` for a program without spans."""
+    latency, its NMS rounds and the family's NMS spans. ``None`` for a
+    program without spans."""
 
     from sparse_pooling_tpu_torch.runtime import profiling
 
@@ -103,9 +106,7 @@ def collected(srv, first: int, n: int = SPAN_REQUESTS) -> Optional[Dict]:
             srv.request(srv.schedule.request(first + k))
             lat.append((time.perf_counter() - s) * 1e3)
         summary = col.summary()
-    cfg = srv.cfg
-    rounds = cfg.rpn.eval_nms_size + cfg.num_classes * cfg.avod.nms_size
-    return dict(summary, requests=n, latency_ms=lat, rounds=rounds)
+    return dict(summary, requests=n, latency_ms=lat, rounds=srv.nms_rounds, nms_spans=list(srv.family.NMS_SPANS))
 
 
 def profiled(srv, first: int, n: int) -> Dict:
@@ -137,35 +138,50 @@ def _median(values) -> Optional[float]:
     return float(np.median(values)) if len(values) else None
 
 
-def readings(data: Optional[Dict], prof: Dict) -> Dict[str, Optional[float]]:
-    """Per-layer numbers from :func:`collected`'s ``data`` and
-    :func:`profiled`'s ``prof`` (``None`` where they read nothing):
-    ``upload_ms`` the median host ms of ``upload``; ``encode_ms``,
-    ``fusion_ms``, ``rpn_nms_ms``, ``stage2_ms``, ``final_nms_ms`` the median
-    device-stream ms of ``detector.encode``, ``detector.fusion``,
-    ``detector.rpn_nms``, ``detector.stage2``, ``decode.nms``;
-    ``nms_round_us`` the median over requests of both NMS spans' host us
-    over its greedy rounds; ``nms_idle_share`` the % of the
-    profiled requests' idle device time whose gap began inside an NMS
-    span."""
+def reading(run: Dict, name: str, what: str) -> Optional[float]:
+    """Span ``name``'s number in a traced run, ``None`` where it has none:
+    ``host_ms``, ``device_ms`` (the device stream's time between its
+    events; host ms off a card) or ``self_ms`` (``device_ms`` less its
+    child spans'), each the median over the collected requests;
+    ``launches`` and ``idle_ms``, a request's over the profiled requests
+    (the device rows launched, and the idle gaps that began, with the span
+    innermost)."""
 
-    names = {"encode_ms": "detector.encode", "fusion_ms": "detector.fusion", "rpn_nms_ms": "detector.rpn_nms",
-             "stage2_ms": "detector.stage2", "final_nms_ms": "decode.nms"}
-    out: Dict[str, Optional[float]] = {k: None for k in ("upload_ms", *names, "nms_round_us", "nms_idle_share")}
+    data = run.get("spans") or {}
+    if what in ("launches", "idle_ms"):
+        prof = data.get("profiled") or {}
+        if not prof.get("requests"):
+            return None
+        if what == "launches":
+            return prof["launches"].get(name, 0) / prof["requests"] if prof["launches"] else None
+        return 1e3 * prof["idle_s"].get(name, 0.0) / prof["requests"] if prof["idle_s"] else None
+    span = ((data.get("collected") or {}).get("spans") or {}).get(name)
+    return _median(span[what]) if span else None
+
+
+def nms_round_us(run: Dict) -> Optional[float]:
+    """The median over the collected requests of the NMS spans' host us
+    over the request's greedy rounds."""
+
+    data = (run.get("spans") or {}).get("collected")
     if not data:
-        return out
-    spans = data["spans"]
-    if "upload" in spans:
-        out["upload_ms"] = _median(spans["upload"]["host_ms"])
-    for key, name in names.items():
-        if name in spans:
-            out[key] = _median(spans[name]["device_ms"])
+        return None
     host_us: Dict[int, float] = defaultdict(float)
-    for name in NMS_SPANS:
-        for r, ms in zip(spans.get(name, {}).get("request", []), spans.get(name, {}).get("host_ms", [])):
+    for name in data["nms_spans"]:
+        span = data["spans"].get(name, {})
+        for r, ms in zip(span.get("request", []), span.get("host_ms", [])):
             host_us[r] += 1e3 * ms
-    out["nms_round_us"] = _median([us / data["rounds"] for us in host_us.values()])
-    idle = prof.get("idle_s", {})
-    if sum(idle.values()) > 0:
-        out["nms_idle_share"] = 100.0 * sum(idle.get(n, 0.0) for n in NMS_SPANS) / sum(idle.values())
-    return out
+    return _median([us / data["rounds"] for us in host_us.values()])
+
+
+def nms_idle_share(run: Dict) -> Optional[float]:
+    """The % of the profiled requests' idle device time whose gap began
+    inside an NMS span."""
+
+    data = run.get("spans") or {}
+    if not data.get("collected"):
+        return None
+    idle = (data.get("profiled") or {}).get("idle_s", {})
+    if sum(idle.values()) <= 0:
+        return None
+    return 100.0 * sum(idle.get(n, 0.0) for n in data["collected"]["nms_spans"]) / sum(idle.values())

@@ -471,34 +471,76 @@ class PipelineConfig:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
 
-def _build(cls, data: Any):
+def _build(cls, data: Any, bench_dir=None):
     if dataclasses.is_dataclass(cls) and isinstance(data, dict):
         fields = {f.name: f for f in dataclasses.fields(cls)}
-        kwargs = {}
+        kwargs, claimed = {}, {}
         for key, value in data.items():
             if key not in fields:
+                if cls is ModelConfig:
+                    claimed[key] = value
+                    continue
                 raise KeyError(f"unknown config field {cls.__name__}.{key}")
             ftype = fields[key].type
             default = getattr(cls, key, fields[key].default)
             if dataclasses.is_dataclass(type(default)):
-                kwargs[key] = _build(type(default), value)
+                kwargs[key] = _build(type(default), value, bench_dir)
             elif isinstance(value, list):
                 kwargs[key] = tuple(tuple(v) if isinstance(v, list) else v for v in value)
             else:
                 kwargs[key] = value
             del ftype
+        if claimed:
+            return _family_model_config(kwargs, claimed, bench_dir)
         return cls(**kwargs)
     return data
 
 
-def pipeline_config_from_dict(data: dict) -> PipelineConfig:
+def from_dict(cls, data: Any, bench_dir=None):
+    """A frozen config dataclass ``cls`` from a (possibly partial) nested
+    dict; unknown keys raise, missing keys take defaults."""
+
+    return _build(cls, data, bench_dir)
+
+
+# (family file, claimed keys) -> its ModelConfig subclass: one class, so that two parses compare equal
+_FAMILY_CLASSES: dict = {}
+
+
+def _family_model_config(kwargs: dict, claimed: dict, bench_dir) -> ModelConfig:
+    """A ModelConfig with the model keys that its family file claims
+    (``MODEL_KEYS``, each value parsed by the family), as fields of a
+    subclass of its own; a key no family claims raises as an unknown one."""
+
+    from families import load
+
+    architecture = kwargs.get("architecture", ModelConfig.architecture)
+    family = load(architecture, bench_dir)
+    for key in claimed:
+        if key not in family.MODEL_KEYS:
+            raise KeyError(f"unknown config field ModelConfig.{key} (not claimed by the family file of "
+                           f"architecture {architecture!r})")
+    keys = tuple(sorted(claimed))
+    cls = _FAMILY_CLASSES.get((id(family), keys))
+    if cls is None:
+        cls = dataclasses.make_dataclass(
+            f"ModelConfig_{architecture}", [(k, Any, dataclasses.field(default=None)) for k in keys],
+            bases=(ModelConfig,), frozen=True)
+        _FAMILY_CLASSES[(id(family), keys)] = cls
+    return cls(**kwargs, **{k: family.MODEL_KEYS[k](claimed[k]) for k in keys})
+
+
+def pipeline_config_from_dict(data: dict, bench_dir=None) -> PipelineConfig:
     """Parse a (possibly partial) nested dict into a PipelineConfig.
 
     Capability parity with ``config_builder_util.get_configs_from_pipeline_file``:
-    unknown keys raise, missing keys take defaults.
+    unknown keys raise, missing keys take defaults. A ``model`` key that
+    ModelConfig does not know is parsed by the family file of the model's
+    architecture (``<bench_dir>/families/<architecture>.py``, this benchmark
+    folder's without ``bench_dir``) where that file claims it.
     """
 
-    return _build(PipelineConfig, data)
+    return _build(PipelineConfig, data, bench_dir)
 
 
 def pipeline_config_from_file(path: str) -> PipelineConfig:

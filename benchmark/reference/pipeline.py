@@ -3,9 +3,14 @@ detector -> detections (the reference's ``models/pipeline.py``).
 
 ``build_model_inputs_batch`` builds the BEV maps, the image, the SHPL COO
 tables and the anchor set on the batch's device, as the port's does;
-``make_model`` builds either detector family in float32 (the configuration's
-compute dtype is replaced by float32), and ``set_lower`` turns every conv
-and dense layer into the control's lower precision.
+``make_model`` builds the detector of the configuration's family in float32
+(the configuration's compute dtype is replaced by float32), and
+``set_lower`` turns every conv and dense layer into the control's lower
+precision. What differs by family (the model class, the anchors, the
+decode, any inputs of its own) comes from its family file
+(``families/<architecture>.py``); each function takes that file's module as
+``family``, and without it loads the file of ``cfg.architecture`` from this
+benchmark folder.
 """
 
 from __future__ import annotations
@@ -17,9 +22,6 @@ import numpy as np
 import torch
 
 from .config import AreaExtents, ModelConfig
-from .detector import SparsePoolingDetector, decode_detections
-from .fusion_rcnn import FusionRcnn, decode_rcnn_detections, rcnn_anchor_grid
-from . import anchors as anchor_ops
 from . import bev_device, sparse_build
 from .image_resize import resize_bilinear_batch
 from .layers import Conv, ConvTransposeSame, Dense
@@ -62,11 +64,20 @@ def float32_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, compute_dtype="float32"))
 
 
-def make_model(cfg: ModelConfig, extents: AreaExtents, device) -> torch.nn.Module:
+def family_of(cfg: ModelConfig, family=None):
+    """``family``, or the family file of ``cfg.architecture``."""
+
+    if family is not None:
+        return family
+    from families import load
+
+    return load(cfg.architecture)
+
+
+def make_model(cfg: ModelConfig, extents: AreaExtents, device, family=None) -> torch.nn.Module:
     """The detector of ``cfg.architecture`` in float32, eval mode."""
 
-    families = {"avod": SparsePoolingDetector, "rcnn": FusionRcnn}
-    return families[cfg.architecture](float32_config(cfg), extents).to(device).eval()
+    return family_of(cfg, family).MODEL(float32_config(cfg), extents).to(device).eval()
 
 
 def set_lower(model: torch.nn.Module, lower) -> None:
@@ -78,16 +89,11 @@ def set_lower(model: torch.nn.Module, lower) -> None:
             m.lower = lower
 
 
-def static_anchor_grid(cfg: ModelConfig, extents: AreaExtents, device) -> torch.Tensor:
-    """Anchor grid constant [N, 8] f32 with y = 0 (filled per frame): the
-    z-major position grid, or the rcnn family's dense fusion lattice."""
+def static_anchor_grid(cfg: ModelConfig, extents: AreaExtents, device, family=None) -> torch.Tensor:
+    """Anchor grid constant [N, 8] f32 with y = 0 (filled per frame), the
+    family's."""
 
-    if cfg.architecture == "rcnn":
-        grid = rcnn_anchor_grid(cfg, extents)
-    else:
-        plane0 = np.array([0.0, -1.0, 0.0, 0.0])
-        grid = anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
-    return torch.from_numpy(grid).to(device)
+    return torch.from_numpy(family_of(cfg, family).anchor_grid(cfg, extents)).to(device)
 
 
 def anchors_with_ground_y(anchors_static: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
@@ -107,9 +113,12 @@ def build_model_inputs_batch(
     path_keep: torch.Tensor,  # [B, 2]
     cfg: ModelConfig,
     extents: AreaExtents,
+    family=None,
 ) -> Dict[str, Any]:
-    """Batch-native input construction on the batch's device."""
+    """Batch-native input construction on the batch's device; the family's
+    anchors and validity, and its own inputs."""
 
+    family = family_of(cfg, family)
     h, w = cfg.bev.grid_hw(extents)
     hp, _ = cfg.bev.padded_hw(extents)
     # packed where the backbone packs anyway (bit-identical inputs); an odd
@@ -144,24 +153,7 @@ def build_model_inputs_batch(
         )
 
     anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
-    if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
-        anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
-                                                   device=anchors_frame.device)
-    elif cfg.rpn.dense_grid:  # every grid anchor, occupancy as a mask
-        fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
-        anchors, valid = anchors_frame, (fp_counts >= thr).reshape(fp_counts.shape[0], -1)
-    elif anchor_ops.quad_supported(
-        cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad
-    ):
-        anchors, valid = anchor_ops.filter_anchor_quads_grid(
-            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-            max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad, density_threshold=thr,
-        )
-    else:
-        anchors, valid = anchor_ops.filter_anchor_positions_grid(
-            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-            max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
-        )
+    anchors, valid = family.frame_anchors(anchors_frame, occupancy, cfg, extents)
     return {
         "bev_input": bev_input,
         "bev_pre_packed": packed,
@@ -172,14 +164,14 @@ def build_model_inputs_batch(
         "anchor_valid": valid,
         "p2": batch.p2,
         "path_keep": path_keep,
+        **family.extra_inputs(batch, cfg, extents),
     }
 
 
-def decode_batch(outputs, ground_plane: torch.Tensor, cfg: ModelConfig, extents: AreaExtents, picks=None):
+def decode_batch(outputs, ground_plane: torch.Tensor, cfg: ModelConfig, extents: AreaExtents, picks=None,
+                 family=None):
     """Final detections: boxes_3d [B, C, K, 7], scores [B, C, K], valid;
     ``picks`` replaces the per-class NMS."""
 
-    if cfg.architecture == "rcnn":
-        return decode_rcnn_detections(outputs, cfg, extents, ground_plane=ground_plane, picks=picks)
-    return decode_detections(outputs, ground_plane, cfg, extents, picks)
+    return family_of(cfg, family).decode(outputs, ground_plane, cfg, extents, picks)
 

@@ -15,7 +15,11 @@ missing or the process has loaded JAX, flax or the JAX package.
 The cell's files say what runs: ``workloads/<cell>.json`` names the
 configuration (``configs/``), the traffic mix (``traffic/``) and the limits
 of the comparison; the traffic's ``kind`` names the module that runs it (``harness/``);
-``metrics/<metric>.py`` reads each per-layer metric of ``BENCHMARK.json``.
+the configuration's architecture names its family file
+(``families/<architecture>.py``: the reference model, anchors, decode, FLOPs
+and what the judge and the spans read of it); ``kernels/<op>.py`` gives each
+hand kernel's bound and the launcher to record; ``metrics/<metric>.py``
+reads each per-layer metric of ``BENCHMARK.json``.
 """
 
 from __future__ import annotations

@@ -33,9 +33,13 @@ def _only_the_benchmark(tmp_path):
 
 
 def test_yardstick_imports_nothing_of_the_program(tmp_path):
+    """The reference, the judge, the counts, the traffic, every family file
+    and every hand kernel's bound file."""
+
     root = _only_the_benchmark(tmp_path)
     code = ("import sys; sys.path.insert(0, 'benchmark'); "
             "import reference.pipeline, harness.judge, harness.flops, harness.roofline, harness.devtrace, traffic; "
+            "import families; from harness.manifest import Cell; families.every(); Cell('rcnn-serve-b8').kernels(); "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'sparse_pooling_tpu_torch', 'sparse_pooling_tpu', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)

@@ -1,12 +1,15 @@
-"""The span split (``span_split.py``, ``harness/spans.py``) rehearsed on the
-CPU at a tiny size: every span reading of both families, and nothing where
-the program has no spans; the benchmark's own traced run reads as before."""
+"""The program's spans in a traced run (``harness/spans.py``, read by
+``run.py --trace 1``) rehearsed on the CPU at a tiny size: every span reading
+of both families, and nothing where the program has no spans; the traced
+run's other numbers read as they do without the spans."""
 
 from __future__ import annotations
 
 import json
+import statistics
 
 import pytest
+import torch
 
 from bench_fixtures import TINY, add_tiny_cell
 
@@ -18,8 +21,8 @@ TREE = {"upload": None, "inputs": None, "detector": None, "detector.encode": "de
 
 
 def _without_spans(monkeypatch):
-    """The program as its parent was: no ``profiling.span``, and the model
-    modules' spans, bound at their import, no-ops."""
+    """The program as it was before its spans: no ``profiling.span``, and
+    the model modules' spans, bound at their import, no-ops."""
 
     import contextlib
 
@@ -31,14 +34,16 @@ def _without_spans(monkeypatch):
         monkeypatch.setattr(module, "span", lambda _name: contextlib.nullcontext())
 
 
-def _split(root, capsys, name=TINY, seed=3_000_000_019):
-    import span_split
+def _served(root, name=TINY, seed=3_000_000_019):
+    """A traced run's data (``harness/serve.run``, as ``run.py`` gets it) and
+    its cell."""
 
-    rc = span_split.main(["--workload", name, "--seed", str(seed), "--seconds", "1"], device="cpu",
-                         bench_dir=root / "benchmark")
-    out, err = capsys.readouterr()
-    assert rc == 0, err
-    return json.loads(out.strip().splitlines()[-1])
+    from harness import serve
+    from harness.manifest import Cell
+
+    cell = Cell(name, root / "benchmark")
+    torch.set_num_threads(1)
+    return serve.run(cell, seed, 1.0, True, torch.device("cpu"), lambda: 0.0)["run"], cell
 
 
 def _traced(root, capsys, name=TINY, seconds="1"):
@@ -52,44 +57,51 @@ def _traced(root, capsys, name=TINY, seconds="1"):
 
 
 @pytest.mark.parametrize("architecture", ["avod", "rcnn"])
-def test_every_span_reading_of_both_families(bench_copy, capsys, architecture):
+def test_every_span_reading_of_both_families(bench_copy, architecture):
     name = TINY
     if architecture == "rcnn":
         name = "tiny-rcnn"
         add_tiny_cell(bench_copy, name=name, architecture="rcnn", limits_from="rcnn-serve-b8")
-    got = _split(bench_copy, capsys, name)
-    assert set(got["spans"]) == READINGS
-    assert all(v is not None and v >= 0 for v in got["spans"].values()), got["spans"]
-    assert {k: v["parent"] for k, v in got["span_ms"].items()} == TREE
-    assert 0 < got["spans"]["nms_idle_share.serve"] <= 100
-    parts = sum(got["spans"][f"{k}.serve"] for k in ("encode_ms", "fusion_ms", "rpn_nms_ms", "stage2_ms"))
-    assert parts <= got["span_ms"]["detector"]["device_ms"]
-    assert got["spans"]["final_nms_ms.serve"] <= got["span_ms"]["decode"]["device_ms"]
-    assert sum(got["launches_by_span"].values()) > 0 and got["span_p50_ms"] > 0 < got["window_p50_ms"]
-    assert got["stage_ms"] == {}  # CUDA events time the window's stages on a card alone
+    run, cell = _served(bench_copy, name)
+    got = {m: cell.reader(m)(run) for m in READINGS}
+    assert READINGS <= {m["name"] for m in cell.per_layer()}
+    assert all(v is not None and v >= 0 for v in got.values()), got
+    spans = run["spans"]["collected"]["spans"]
+    assert {k: v["parent"] for k, v in spans.items()} == TREE
+    assert 0 < got["nms_idle_share.serve"] <= 100
+    med = {k: statistics.median(v["device_ms"]) for k, v in spans.items()}
+    parts = sum(got[f"{k}.serve"] for k in ("encode_ms", "fusion_ms", "rpn_nms_ms", "stage2_ms"))
+    assert parts <= med["detector"]
+    assert got["final_nms_ms.serve"] <= med["decode"]
+    prof = run["spans"]["profiled"]
+    assert sum(prof["launches"].values()) > 0 and prof["requests"] == cell.workload["profiled_requests"]
+    assert statistics.median(run["spans"]["collected"]["latency_ms"]) > 0 < statistics.median(
+        run["window"]["latency_ms"])
+    assert run["window"]["stage_ms"] == {}  # CUDA events time the window's stages on a card alone
 
 
-def test_a_program_without_spans_gives_no_reading(bench_copy, capsys, monkeypatch):
-    with_spans = _split(bench_copy, capsys)
+def test_a_program_without_spans_gives_no_reading(bench_copy, monkeypatch):
+    with_spans, cell = _served(bench_copy)
     _without_spans(monkeypatch)
-    without = _split(bench_copy, capsys)
-    assert set(without["spans"]) == READINGS and all(v is None for v in without["spans"].values())
-    assert "span_ms" not in without and without["window_p50_ms"] > 0
-    assert set(with_spans) - set(without) == {"span_p50_ms", "span_ms", "launches_by_span", "idle_ms_by_span",
-                                              "busy_ms", "launch_found"}
+    without, _ = _served(bench_copy)
+    assert all(cell.reader(m)(without) is None for m in READINGS)
+    assert all(cell.reader(m)(with_spans) is not None for m in READINGS)
+    assert without["spans"] == {"collected": None, "profiled": {}}
+    assert statistics.median(without["window"]["latency_ms"]) > 0
 
 
 def test_the_traced_run_reads_as_before(bench_copy, capsys, monkeypatch):
     """The benchmark's own ``--trace 1`` line is the same with the program's
-    spans and without them (the parent), its timings apart. A window of one
-    request: the judge samples the same requests on both sides."""
+    spans and without them (the parent program), its timings apart, and
+    with them adds the span readings. A window of one request: the judge
+    samples the same requests on both sides."""
 
     got = _traced(bench_copy, capsys, seconds="0")
     _without_spans(monkeypatch)
     parent = _traced(bench_copy, capsys, seconds="0")
     assert got["attempted"] == parent["attempted"] == 1
-    assert set(got["metrics"]) == set(parent["metrics"]) and "mfu.serve" in got["metrics"]
-    assert not READINGS & set(got["metrics"])
+    assert set(got["metrics"]) - set(parent["metrics"]) == READINGS
+    assert not READINGS & set(parent["metrics"]) and "mfu.serve" in parent["metrics"]
     # the judge's numbers, each beside its limit: the same sampled requests, the same outputs
     assert got["checks"] == parent["checks"] and got["checks"]
     assert set(got["breakdown"]) == set(parent["breakdown"]) == {"device_ops", "idle_gaps"}

@@ -25,14 +25,17 @@ def frame_seeds(seed: int, n: int) -> np.ndarray:
     return np.random.SeedSequence(int(seed)).generate_state(n, dtype=np.uint32) % (2**31 - 2**16)
 
 
-def frame_pool(mix: Dict, cfg_model, seed: int) -> List[Dict[str, np.ndarray]]:
-    """The run's frames, host numpy dicts keyed like the port's ``RawSample``."""
+def frame_pool(mix: Dict, cfg_model, seed: int, family=None) -> List[Dict[str, np.ndarray]]:
+    """The run's frames, host numpy dicts keyed like the port's ``RawSample``;
+    a detector family's ``frame(frame, seed)`` (``families/``) adds what its
+    frames carry beyond them, from the frame's own seed."""
 
     n = int(mix["pool_frames"])
     counts = np.rint(np.linspace(mix["points_min"], mix["points_max"], n)).astype(int)
     counts = np.random.default_rng([int(seed), 1]).permutation(counts)
-    return [synthetic_frame(cfg_model, n_points=int(c), seed=int(s), image=mix["image"])
-            for c, s in zip(counts, frame_seeds(seed, n))]
+    frames = [(synthetic_frame(cfg_model, n_points=int(c), seed=int(s), image=mix["image"]), int(s))
+              for c, s in zip(counts, frame_seeds(seed, n))]
+    return [family.frame(f, s) if family is not None else f for f, s in frames]
 
 
 class ServeSchedule:
