@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Any, Tuple
 
 
@@ -348,7 +349,8 @@ class PathDropConfig:
 class ModelConfig:
     # "avod": the flagship two-stage AVOD-style detector (crop-based RPN,
     # box_4c stage 2). "rcnn": the MV3D-style FusionRcnn second consumer
-    # (dense conv RPN, anchor-offset stage 2).
+    # (dense conv RPN, anchor-offset stage 2). "mv3d": MV3D as published
+    # (models/mv3d.py; its configuration is a Mv3dModelConfig).
     architecture: str = "avod"
     classes: Tuple[str, ...] = ("Car",)
     bev: BevConfig = BevConfig()
@@ -364,6 +366,42 @@ class ModelConfig:
     @property
     def num_classes(self) -> int:
         return len(self.classes)
+
+
+@_freeze
+class Mv3dConfig:
+    """MV3D's own settings (Chen et al., arXiv:1611.07759), read by
+    ``architecture="mv3d"`` alone: the LiDAR front view's cylinder and the
+    upsampling of the fused BEV map before the proposal head."""
+
+    fv_height: int = 64  # rows: the HDL-64E's 64 beams
+    fv_width: int = 512  # columns
+    fv_azimuth_deg: float = 81.0  # the front camera's horizontal field over the columns
+    fv_elevation_up_deg: float = 2.0  # the HDL-64E's field: +2 deg ...
+    fv_elevation_deg: float = 26.8  # ... down to -24.8 deg, over the rows
+    proposal_upsample: int = 2  # bilinear, so the proposal lattice sits at fusion_stride / 2
+
+    @property
+    def fv_steps(self) -> Tuple[float, float]:
+        """(dtheta, dphi): a column's and a row's angle (rad)."""
+
+        return (math.radians(self.fv_azimuth_deg) / self.fv_width,
+                math.radians(self.fv_elevation_deg) / self.fv_height)
+
+    @property
+    def fv_top(self) -> int:
+        """Rows above the horizontal: a point with elevation in [r dphi,
+        (r + 1) dphi) lands in row ``fv_top - 1 - r``."""
+
+        return math.ceil(self.fv_elevation_up_deg * self.fv_height / self.fv_elevation_deg)
+
+
+@_freeze
+class Mv3dModelConfig(ModelConfig):
+    """A ``ModelConfig`` with its ``mv3d`` section (``architecture="mv3d"``;
+    the other families' configurations keep their fields)."""
+
+    mv3d: Mv3dConfig = Mv3dConfig()
 
 
 @_freeze
@@ -473,6 +511,8 @@ class PipelineConfig:
 
 def _build(cls, data: Any):
     if dataclasses.is_dataclass(cls) and isinstance(data, dict):
+        if cls is ModelConfig and data.get("architecture") == "mv3d":
+            cls = Mv3dModelConfig
         fields = {f.name: f for f in dataclasses.fields(cls)}
         kwargs = {}
         for key, value in data.items():

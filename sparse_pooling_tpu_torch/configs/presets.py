@@ -19,6 +19,7 @@ from sparse_pooling_tpu_torch.configs.config import (
     ImageConfig,
     MiniBatchConfig,
     ModelConfig,
+    Mv3dModelConfig,
     PipelineConfig,
     RpnConfig,
     SparsePoolConfig,
@@ -103,6 +104,34 @@ def rcnn_cars_config() -> PipelineConfig:
             # are wired and A/B-able via cars_check --rcnn_box_rep
             # (round-4 verdict item 3)
             avod=AvodStage2Config(box_rep="offsets"),
+        ),
+    )
+
+
+def mv3d_cars_config() -> PipelineConfig:
+    """Cars with MV3D as published (Chen et al., arXiv:1611.07759): BEV
+    (five height slices, density, intensity), LiDAR front view and image,
+    each through VGG-16 at half width without pool4 (the (32, 64, 128, 256)
+    encoder, stride 8); SHPL fusion of BEV and image both ways, as the
+    reference's MV3D fork grafts it; the proposal head on the 2x upsampled
+    fused BEV map (stride 4) with MV3D's four anchors a cell and the empty
+    ones masked, NMS at 0.7 keeping 300; 7x7 crops of each view's stride-8
+    map, deep fusion by the element-wise mean over three FC layers of 2048;
+    box_8c. The image canvas is KITTI's 375x1242 upscaled to a short side of
+    500 (504x1656, a multiple of the stride)."""
+
+    return PipelineConfig(
+        checkpoint_name="mv3d_cars_shpl",
+        model=Mv3dModelConfig(
+            architecture="mv3d",
+            classes=("Car",),
+            image=ImageConfig(height=504, width=1656),
+            # (l, w) in {(3.9, 1.6), (1.0, 0.6)}, h = 1.56, at 0 and 90 deg,
+            # on the proposal lattice (0.1 m voxels x stride 4)
+            anchors=AnchorConfig(stride=0.4, sizes=((3.9, 1.6, 1.56), (1.0, 0.6, 1.56))),
+            # Faster R-CNN's test default of 6000 boxes before the NMS
+            rpn=RpnConfig(nms_iou_thresh=0.7, eval_nms_size=300, pre_nms_top_k=6000),
+            avod=AvodStage2Config(fusion_type="deep", box_rep="box_8c"),
         ),
     )
 
@@ -202,6 +231,7 @@ def preset(name: str) -> PipelineConfig:
     presets = {
         "cars": cars_pyramid_config,
         "rcnn_cars": rcnn_cars_config,
+        "mv3d_cars": mv3d_cars_config,
         "people": people_pyramid_config,
         "unittest": unittest_config,
     }

@@ -92,7 +92,8 @@ class Stage2Head(nn.Module):
     layer, re-combined after each); ``fusion_method`` how: ``mean`` (before
     the FCs over the kept-branch count, after an FC over the branch count:
     an FC of a zeroed input is not zero) or ``concat``. One view takes the
-    early stack.
+    early stack. ``join`` (no parameters) passes the fused features that the
+    output heads read, so that a hook on it reads them.
 
     With a ``model_group`` (``parallel.mesh.shard_module`` sets it and cuts
     each FC to its column shard) every FC runs tensor-parallel: the full
@@ -120,6 +121,7 @@ class Stage2Head(nn.Module):
                 for vi in range(n_views):
                     self.add_module(f"fc{i + 1}_v{vi}", Dense(cin, widths[i + 1], dtype=dtype))
             out = widths[-1] * mult
+        self.join = nn.Identity()
         self.cls = Dense(out, num_classes + 1)
         self.box_reg = Dense(out, box_dim)
         self.orientation = Dense(out, 2)
@@ -167,6 +169,7 @@ class Stage2Head(nn.Module):
             x = self._combine(views, denom)
             for i in range(self.n_fc):
                 x = fc(f"fc{i + 1}", x)
+        x = self.join(x)
         flip = self.flip(x) if hasattr(self, "flip") else None
         return self.cls(x), self.box_reg(x), self.orientation(x), flip
 

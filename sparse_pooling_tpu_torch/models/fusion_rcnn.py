@@ -41,6 +41,7 @@ from sparse_pooling_tpu_torch.models.detector import (
 )
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
 from sparse_pooling_tpu_torch.models.layers import Conv
+from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import encoders, projection
 from sparse_pooling_tpu_torch.ops.nms import top_k_nms_batch
 from sparse_pooling_tpu_torch.runtime.profiling import span
@@ -50,26 +51,10 @@ def rcnn_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
     """Dense fusion-lattice anchors [Hf*Wf*R, 8] f32 with y = 0 (filled per
     frame): one per cell per (size, rotation), cells row-major, the R
     variants of a cell adjacent with the rotation fastest (the conv head's
-    NHWC channel order)."""
+    NHWC channel order); a size's index is its class index."""
 
-    s = cfg.sparse_pool.fusion_stride
-    bh, bw = cfg.bev.padded_hw(extents)
-    hf, wf = bh // s, bw // s
-    cell = cfg.bev.voxel_size * s
-    zs = extents.z_min + (np.arange(hf) + 0.5) * cell
-    xs = extents.x_min + (np.arange(wf) + 0.5) * cell
-    gx, gz = np.meshgrid(xs, zs, indexing="xy")  # [hf, wf]
-    n = hf * wf
-    out = []
-    for cls_idx, (l, w, h) in enumerate(cfg.anchors.sizes):
-        for rot_idx in range(len(cfg.anchors.rotations)):
-            dim_x, dim_z = (l, w) if rot_idx % 2 == 0 else (w, l)
-            out.append(np.stack([
-                gx.reshape(-1), np.zeros(n), gz.reshape(-1),
-                np.full(n, dim_x), np.full(n, h), np.full(n, dim_z),
-                np.full(n, rot_idx, np.float64), np.full(n, cls_idx, np.float64),
-            ], axis=1))
-    return np.stack(out, axis=1).reshape(-1, 8).astype(np.float32)
+    return anchor_ops.lattice_anchor_grid(cfg.anchors, cfg.bev, extents, cfg.sparse_pool.fusion_stride,
+                                          range(len(cfg.anchors.sizes)))
 
 
 class ConvRpnHead(nn.Module):

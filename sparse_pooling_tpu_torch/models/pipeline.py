@@ -3,14 +3,17 @@
 Port of ``sparse_pooling_tpu.models.pipeline``: the voxelizer (packed
 where the backbone packs, else the full raster), the in-graph image resize,
 the SHPL COO build and the anchor set (the quad or the position filter, the
-dense grid's occupancy mask over every anchor with ``rpn.dense_grid``, or
-the dense lattice grid, all valid, for ``architecture="rcnn"``) build the
-model inputs on the device; ``forward_batch_fn`` runs the detector (serving under
+dense grid's occupancy mask over every anchor with ``rpn.dense_grid``, the
+dense lattice grid, all valid, for ``architecture="rcnn"``, or the stride-4
+proposal lattice with its empty anchors masked for ``architecture="mv3d"``,
+which also builds its front view and BEV intensity) build the model inputs
+on the device; ``forward_batch_fn`` runs the detector (serving under
 ``no_grad``; ``train=True`` with path drop and dropout drawn from a
 ``torch.Generator``), ``decode_batch`` the final NMS and ``loss_batch`` the
 training losses, each dispatched on the architecture: the AVOD-style
-``SparsePoolingDetector`` or the MV3D-style ``FusionRcnn``. Entry points
-take ``device`` (default ``"cuda"``) and raise when it is unavailable.
+``SparsePoolingDetector``, the MV3D-style ``FusionRcnn`` or MV3D as
+published, ``Mv3d`` (serving only). Entry points take ``device`` (default
+``"cuda"``) and raise when it is unavailable.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from sparse_pooling_tpu_torch.models.fusion_rcnn import (
     rcnn_anchor_grid,
 )
 from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
+from sparse_pooling_tpu_torch.models.mv3d import Mv3d, proposal_stride
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
+from sparse_pooling_tpu_torch.ops.front_view import front_view_batch
 from sparse_pooling_tpu_torch.ops.image_resize import resize_bilinear_batch
 from sparse_pooling_tpu_torch.runtime.profiling import span
 
@@ -40,7 +45,7 @@ from sparse_pooling_tpu_torch.runtime.profiling import span
 class RawSample(NamedTuple):
     """Per-batch device inputs (leading batch dim on every field)."""
 
-    points: torch.Tensor  # [B, P, 3] f32 camera frame, zero-padded
+    points: torch.Tensor  # [B, P, 3] f32 camera frame, zero-padded ([B, P, 4] with intensity: mv3d)
     points_mask: torch.Tensor  # [B, P] bool
     image: torch.Tensor  # [B, Hi, Wi, 3] uint8 canvas
     p2: torch.Tensor  # [B, 3, 4] f32 canvas-scaled
@@ -66,10 +71,14 @@ def stack_frames(frames: Sequence[Dict[str, np.ndarray]], device="cuda") -> RawS
 
 def static_anchor_grid(cfg: ModelConfig, extents: AreaExtents, device="cuda") -> torch.Tensor:
     """Anchor grid constant [N, 8] f32 with y = 0 (filled per frame): the
-    z-major position grid, or the rcnn family's dense fusion lattice."""
+    z-major position grid, the rcnn family's dense fusion lattice, or MV3D's
+    proposal lattice (every size a car anchor, class 0)."""
 
     if cfg.architecture == "rcnn":
         grid = rcnn_anchor_grid(cfg, extents)
+    elif cfg.architecture == "mv3d":
+        grid = anchor_ops.lattice_anchor_grid(cfg.anchors, cfg.bev, extents, proposal_stride(cfg),
+                                              [0] * len(cfg.anchors.sizes))
     else:
         plane0 = np.array([0.0, -1.0, 0.0, 0.0])
         grid = anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
@@ -88,8 +97,8 @@ def anchors_with_ground_y(anchors_static: torch.Tensor, plane: torch.Tensor) -> 
 
 
 def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="cuda"):
-    """Build the detector of ``cfg.architecture`` (``SparsePoolingDetector``
-    or ``FusionRcnn``) on ``device`` in eval mode (parameters from PyTorch's
+    """Build the detector of ``cfg.architecture`` (``SparsePoolingDetector``,
+    ``FusionRcnn`` or ``Mv3d``) on ``device`` in eval mode (parameters from PyTorch's
     default init; load ``weights.from_flax`` or ``weights.init_like_flax``
     before use)."""
 
@@ -129,7 +138,16 @@ def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="c
             f"anchors.max_anchors={cfg.anchors.max_anchors} must be divisible "
             "by the class x rotation variant count"
         )
-    families = {"avod": SparsePoolingDetector, "rcnn": FusionRcnn}
+    if cfg.architecture == "mv3d":
+        if not hasattr(cfg, "mv3d"):
+            raise ValueError("architecture 'mv3d' needs its mv3d section: a Mv3dModelConfig")
+        up = cfg.mv3d.proposal_upsample
+        if up < 1 or s % up or abs(cfg.anchors.stride - cfg.bev.voxel_size * (s // up)) > 1e-6:
+            raise ValueError(
+                f"mv3d.proposal_upsample={up} must divide the fusion stride {s}, and anchors.stride "
+                f"({cfg.anchors.stride}) must be the proposal lattice's spacing"
+            )
+    families = {"avod": SparsePoolingDetector, "rcnn": FusionRcnn, "mv3d": Mv3d}
     if cfg.architecture not in families:
         raise ValueError(f"unknown architecture '{cfg.architecture}'")
     return families[cfg.architecture](cfg, extents).to(dev).eval()
@@ -180,9 +198,20 @@ def build_model_inputs_batch(
             )
 
         anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
+        extra = {}
         if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
             anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
                                                        device=anchors_frame.device)
+        elif cfg.architecture == "mv3d":  # the proposal lattice, empty anchors masked
+            anchors = anchors_frame
+            valid = anchor_ops.lattice_anchor_valid(occupancy, extents, cfg.bev, cfg.anchors,
+                                                    proposal_stride(cfg))
+            with span("inputs.front_view"):
+                extra = {
+                    "fv_input": front_view_batch(batch.points, batch.points_mask, batch.ground_plane, cfg.mv3d),
+                    "bev_intensity": bev_device.bev_intensity_batch(
+                        batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev),
+                }
         elif cfg.rpn.dense_grid:  # every grid anchor, occupancy as a mask
             fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
             anchors, valid = anchors_frame, (fp_counts >= thr).reshape(fp_counts.shape[0], -1)
@@ -208,6 +237,7 @@ def build_model_inputs_batch(
             "anchor_valid": valid,
             "p2": batch.p2,
             "path_keep": path_keep,
+            **extra,
         }
 
 

@@ -7,13 +7,18 @@ per frame, every variant's footprint occupancy comes from the integral image
 ``grid_occupancy_counts``; else one gather of its four corners), and the
 filter keeps whole units (a position's variants, ``filter_anchor_positions_grid``,
 or a QxQ block of positions, ``filter_anchor_quads_grid``); the static cap
-fills by descending occupancy-count tier (``_tiered_first_k``). Plain
-PyTorch; a hand kernel for the compaction is queued in ROADMAP.md.
+fills by descending occupancy-count tier (``_tiered_first_k``). The
+dense families' anchors sit on a feature lattice instead
+(``lattice_anchor_grid``: the rcnn family's fusion lattice, MV3D's stride-4
+proposal lattice), MV3D's with the same footprint counts as a mask
+(``lattice_anchor_valid``). Plain PyTorch; a hand kernel for the compaction
+is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import dataclasses
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +75,52 @@ def grid_shape(cfg: AnchorConfig, extents: AreaExtents) -> Tuple[int, int]:
     nx = len(np.arange(extents.x_min + cfg.stride / 2, extents.x_max, cfg.stride))
     nz = len(np.arange(extents.z_min + cfg.stride / 2, extents.z_max, cfg.stride))
     return nz, nx
+
+
+def lattice_anchor_grid(anchor_cfg: AnchorConfig, bev_cfg: BevConfig, extents: AreaExtents, stride: int,
+                        size_classes: Sequence[int]) -> np.ndarray:
+    """Anchors on a feature lattice of ``stride`` BEV cells over the padded
+    BEV map: [Hl*Wl*V, 8] f32 with y = 0 (filled per frame), one a cell a
+    (size, rotation), cells row-major, the V variants of a cell adjacent
+    with the rotation fastest (a conv head's NHWC channel order); the class
+    index of size i is ``size_classes[i]``."""
+
+    bh, bw = bev_cfg.padded_hw(extents)
+    hl, wl = bh // stride, bw // stride
+    cell = bev_cfg.voxel_size * stride
+    zs = extents.z_min + (np.arange(hl) + 0.5) * cell
+    xs = extents.x_min + (np.arange(wl) + 0.5) * cell
+    gx, gz = np.meshgrid(xs, zs, indexing="xy")  # [hl, wl]
+    n = hl * wl
+    out = []
+    for cls_idx, (l, w, h) in zip(size_classes, anchor_cfg.sizes):
+        for rot_idx in range(len(anchor_cfg.rotations)):
+            dim_x, dim_z = (l, w) if rot_idx % 2 == 0 else (w, l)
+            out.append(np.stack([
+                gx.reshape(-1), np.zeros(n), gz.reshape(-1),
+                np.full(n, dim_x), np.full(n, h), np.full(n, dim_z),
+                np.full(n, rot_idx, np.float64), np.full(n, cls_idx, np.float64),
+            ], axis=1))
+    return np.stack(out, axis=1).reshape(-1, 8).astype(np.float32)
+
+
+def lattice_anchor_valid(occupancy: torch.Tensor, extents: AreaExtents, bev_cfg: BevConfig,
+                         anchor_cfg: AnchorConfig, stride: int) -> torch.Tensor:
+    """The anchors of ``lattice_anchor_grid`` at ``stride`` that are not
+    empty: occupancy [B, H, W] -> [B, Hl*Wl*V] bool, each anchor's footprint
+    count (``grid_occupancy_counts`` at the lattice's spacing) at least
+    ``density_threshold``; the lattice's rows past the content (the padded
+    map's) are empty."""
+
+    cfg = dataclasses.replace(anchor_cfg, stride=bev_cfg.voxel_size * stride)
+    counts = grid_occupancy_counts(occupancy, extents, bev_cfg, cfg)
+    nz, nx = grid_shape(cfg, extents)
+    bh, bw = bev_cfg.padded_hw(extents)
+    if nx != bw // stride or nz > bh // stride:
+        raise ValueError(f"anchor grid {nz}x{nx} does not fit the {bh // stride}x{bw // stride} lattice")
+    counts = counts.reshape(counts.shape[0], nz, nx, -1)
+    counts = torch.nn.functional.pad(counts, (0, 0, 0, 0, 0, bh // stride - nz))
+    return (counts >= anchor_cfg.density_threshold).reshape(counts.shape[0], -1)
 
 
 class FilteredAnchors(NamedTuple):

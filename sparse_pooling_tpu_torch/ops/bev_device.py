@@ -8,8 +8,11 @@ scatter-add and each height slice from a scatter-amax.
 ``bev_maps_packed_batch`` keys the packed cell ``(row//2, col//2,
 sub = (row%2)*2 + col%2)`` so the full raster never exists (the same values,
 space-to-depth'ed); ``bev_counts_from_points`` is the anchor filter's
-per-cell count raster. Plain PyTorch (``index_add_`` / ``scatter_reduce_``);
-a hand kernel is queued in ROADMAP.md.
+per-cell count raster; ``bev_intensity_batch`` is MV3D's intensity channel,
+the reflectance of each cell's highest point (``cell_winner``: a
+scatter-amax, then the lowest index among the points that reach it). Plain
+PyTorch (``index_add_`` / ``scatter_reduce_``); a hand kernel is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -51,6 +54,42 @@ def _segment_counts(keys: torch.Tensor, valid: torch.Tensor, n_keys: int) -> tor
     return counts.reshape(bsz, n_keys + 1)[:, :n_keys]
 
 
+def cell_winner(keys: torch.Tensor, values: torch.Tensor, valid: torch.Tensor, n_keys: int,
+                largest: bool) -> torch.Tensor:
+    """Per key, the index of the valid point whose value is the key's
+    largest (``largest``) or smallest, ties to the lowest point index:
+    keys, values, valid [B, P] -> [B, n_keys] int64, P where no valid point
+    has the key. Two scatter reductions, each independent of the order of
+    the points."""
+
+    bsz, p = keys.shape
+    fill = -math.inf if largest else math.inf
+    off = (torch.arange(bsz, device=keys.device, dtype=torch.int64) * (n_keys + 1))[:, None]
+    ids = (torch.where(valid, keys, n_keys) + off).reshape(-1)
+    vals = torch.where(valid, values.to(torch.float32), fill).reshape(-1)
+    best = torch.full((bsz * (n_keys + 1),), fill, dtype=torch.float32, device=keys.device)
+    best.scatter_reduce_(0, ids, vals, reduce="amax" if largest else "amin", include_self=True)
+    on_best = valid.reshape(-1) & (vals == best[ids])
+    index = torch.arange(p, device=keys.device, dtype=torch.int64).expand(bsz, p).reshape(-1)
+    win = torch.full((bsz * (n_keys + 1),), p, dtype=torch.int64, device=keys.device)
+    win.scatter_reduce_(0, ids, torch.where(on_best, index, p), reduce="amin", include_self=True)
+    return win.reshape(bsz, n_keys + 1)[:, :n_keys]
+
+
+def gather_points(features: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """features [B, P, C] at index [B, K] (P: a zero row) -> [B, K, C]."""
+
+    padded = torch.nn.functional.pad(features, (0, 0, 0, 1))
+    return torch.gather(padded, 1, index[..., None].expand(-1, -1, features.shape[-1]))
+
+
+def ground_heights(points: torch.Tensor, ground_plane: torch.Tensor) -> torch.Tensor:
+    """Each point's height above its frame's ground plane: [B, P]."""
+
+    gp = ground_plane[:, :, None]
+    return points[..., 0] * gp[:, 0] + points[..., 1] * gp[:, 1] + points[..., 2] * gp[:, 2] + gp[:, 3]
+
+
 def _slice_maxima(points, ground_plane, valid, keys, n_keys: int, cfg: BevConfig) -> torch.Tensor:
     """Per-(key, slice) max of (height - slice bottom) over slice height
     [B, n_keys, slices] f32; empty segments stay -inf and clamp to 0, as the
@@ -58,9 +97,7 @@ def _slice_maxima(points, ground_plane, valid, keys, n_keys: int, cfg: BevConfig
 
     bsz = points.shape[0]
     ns = cfg.height_slices
-    x, y, z = points[..., 0], points[..., 1], points[..., 2]
-    gp = ground_plane[:, :, None]
-    heights = x * gp[:, 0] + y * gp[:, 1] + z * gp[:, 2] + gp[:, 3] - cfg.height_lo
+    heights = ground_heights(points, ground_plane) - cfg.height_lo
     slice_h = (cfg.height_hi - cfg.height_lo) / ns
     s_idx = torch.floor(heights / slice_h).to(torch.int64)
     s_valid = valid & (s_idx >= 0) & (s_idx < ns)
@@ -153,3 +190,23 @@ def unpack_s2d_raster(grid: torch.Tensor, content_h: int) -> torch.Tensor:
     b, h2, w2, _ = grid.shape
     full = grid.reshape(b, h2, w2, 2, 2).permute(0, 1, 3, 2, 4).reshape(b, h2 * 2, w2 * 2)
     return full[:, :content_h]
+
+
+def bev_intensity_batch(
+    points: torch.Tensor,  # [B, P, 4] f32, intensity last
+    mask: torch.Tensor,  # [B, P] bool
+    ground_plane: torch.Tensor,  # [B, 4] f32
+    extents: AreaExtents,
+    cfg: BevConfig,
+) -> torch.Tensor:
+    """MV3D's BEV intensity channel: [B, H+pad, W, 1] f32, the intensity of
+    each cell's highest point above the ground plane (ties to the lowest
+    point index) over the points the height maps count, 0 where the cell is
+    empty; ``pad_h`` zero rows below the content."""
+
+    bsz = points.shape[0]
+    h, w = cfg.grid_hw(extents)
+    valid, row, col = _cells(points, mask, extents, cfg.voxel_size, h, w)
+    win = cell_winner(row * w + col, ground_heights(points, ground_plane), valid, h * w, largest=True)
+    out = gather_points(points[..., 3:4], win).reshape(bsz, h, w, 1)
+    return torch.nn.functional.pad(out, (0, 0, 0, 0, 0, cfg.pad_h))

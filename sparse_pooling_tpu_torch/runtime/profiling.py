@@ -19,10 +19,14 @@ does not have.
   the profiler's clock.
 
 The serving path's spans: ``upload`` (``pipeline.stack_frames``), ``inputs``
-(``build_model_inputs_batch``), ``detector`` (the detector's forward) with
-``detector.encode``, ``detector.fusion``, ``detector.rpn_nms``,
-``detector.decode_maps`` and ``detector.stage2`` inside it, ``decode``
-(``decode_batch``) with ``decode.nms`` inside it.
+(``build_model_inputs_batch``; MV3D's front view and BEV intensity in
+``inputs.front_view`` inside it), ``detector`` (the detector's forward) with
+``detector.encode`` (each view's encoder: two, MV3D's three),
+``detector.fusion`` (both SHPL layers), ``detector.rpn_nms``,
+``detector.decode_maps`` (the AVOD and rcnn families' decoders) and
+``detector.stage2`` inside it (MV3D's with ``detector.stage2.crops``, the
+three views' crops, and ``detector.stage2.head``, the deep-fusion head,
+inside it), ``decode`` (``decode_batch``) with ``decode.nms`` inside it.
 """
 
 from __future__ import annotations
