@@ -56,16 +56,45 @@ class RawSample(NamedTuple):
     image_scale: Any = None  # [B, 2] f32 (sy, sx) = canvas / raw, or None
 
 
+# fields and bytes ``stack_frames`` staged since import: pinned (a card) or plain
+_UPLOADS = {"pinned_fields": 0, "pinned_bytes": 0, "plain_fields": 0, "plain_bytes": 0}
+# the image first: the largest field's copy runs while the host stacks the rest
+_UPLOAD_ORDER = ("image",) + tuple(n for n in RawSample._fields if n != "image")
+
+
+def upload_counts() -> Dict[str, int]:
+    """The fields and bytes ``stack_frames`` has staged in this process,
+    pinned (``pinned_fields``, ``pinned_bytes``) or plain (``plain_*``)."""
+
+    return dict(_UPLOADS)
+
+
 def stack_frames(frames: Sequence[Dict[str, np.ndarray]], device="cuda") -> RawSample:
     """Stack per-frame numpy dicts (``data.synthetic_frame``) into a batched
-    ``RawSample`` on ``device``."""
+    ``RawSample`` on ``device``.
+
+    Each field is stacked in one host pass into a fresh staging tensor. For
+    a card it is page-locked and copied without a wait: the result is ready
+    in the current stream's order, and PyTorch's caching host allocator
+    hands the block out again only once that copy has finished. Off a card
+    the staging tensor is the result."""
 
     dev = resolve_device(device)
+    pin = dev.type == "cuda"
+    kind = "pinned" if pin else "plain"
     fields = {}
     with span("upload"):
-        for name in RawSample._fields:
+        for name in _UPLOAD_ORDER:
             arrs = [f.get(name) for f in frames]
-            fields[name] = None if arrs[0] is None else torch.from_numpy(np.stack(arrs)).to(dev)
+            if arrs[0] is None:
+                fields[name] = None
+                continue
+            dtype = torch.from_numpy(np.empty(0, np.result_type(*arrs))).dtype
+            staging = torch.empty((len(arrs),) + arrs[0].shape, dtype=dtype, pin_memory=pin)
+            np.stack(arrs, out=staging.numpy())
+            fields[name] = staging.to(dev, non_blocking=pin)
+            _UPLOADS[kind + "_fields"] += 1
+            _UPLOADS[kind + "_bytes"] += staging.nbytes
     return RawSample(**fields)
 
 

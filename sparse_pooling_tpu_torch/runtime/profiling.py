@@ -18,7 +18,10 @@ does not have.
   ``torch.profiler`` records, each span is also an ``spt.<name>`` range on
   the profiler's clock.
 
-The serving path's spans: ``upload`` (``pipeline.stack_frames``), ``inputs``
+The serving path's spans: ``upload`` (``pipeline.stack_frames``: each field
+stacked into a page-locked host tensor and copied to the card without a
+wait, or stacked plainly off a card; ``pipeline.upload_counts`` counts the
+fields and bytes staged each way), ``inputs``
 (``build_model_inputs_batch``; MV3D's front view and BEV intensity in
 ``inputs.front_view`` inside it), ``detector`` (the detector's forward) with
 ``detector.encode`` (each view's encoder: two, MV3D's three),
