@@ -225,7 +225,7 @@ from sparse_pooling_tpu_torch.configs.presets import people_pyramid_config, rcnn
 from sparse_pooling_tpu_torch.data.sparse_matrix import build_sparse_pooling_input
 from sparse_pooling_tpu_torch.data.pointcloud import trim_points_to_bucket
 from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame
-from sparse_pooling_tpu_torch.models import fusion_rcnn
+from sparse_pooling_tpu_torch.models import detector
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, nms, sparse_pool
 from sparse_pooling_tpu_torch.runtime import checkpoint as ckpt_mod
@@ -1876,7 +1876,7 @@ def rcnn_serving_phase(device, cars_serving):
     requests = [make_batch(cfg, r, device) for r in range(REQUESTS)]
     a_calls, nms_calls, rpn_calls = [], [], []
     with recording(sparse_pool, "sparse_pool_patch_kernel", a_calls), \
-            recording(nms, "greedy_nms_kernel", nms_calls), recording(fusion_rcnn, "top_k_nms_batch", rpn_calls):
+            recording(nms, "greedy_nms_kernel", nms_calls), recording(detector, "top_k_nms_batch", rpn_calls):
         run_request(model, requests[0][1], anchors, cfg, ext)
     torch.cuda.synchronize()
     check(len(a_calls) == 2, f"an rcnn request reached kernel A {len(a_calls)} times, not twice")

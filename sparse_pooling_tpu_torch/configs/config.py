@@ -404,6 +404,11 @@ class Mv3dModelConfig(ModelConfig):
     mv3d: Mv3dConfig = Mv3dConfig()
 
 
+# architecture -> its ``ModelConfig`` with the family's own section, where
+# it has one (the others parse as ``ModelConfig``)
+FAMILY_MODEL_CONFIGS = {"mv3d": Mv3dModelConfig}
+
+
 @_freeze
 class OptimizerConfig:
     """Adam + exponential LR decay (reference: ``optimizer_builder`` + train.proto)."""
@@ -511,8 +516,8 @@ class PipelineConfig:
 
 def _build(cls, data: Any):
     if dataclasses.is_dataclass(cls) and isinstance(data, dict):
-        if cls is ModelConfig and data.get("architecture") == "mv3d":
-            cls = Mv3dModelConfig
+        if cls is ModelConfig:
+            cls = FAMILY_MODEL_CONFIGS.get(data.get("architecture"), cls)
         fields = {f.name: f for f in dataclasses.fields(cls)}
         kwargs = {}
         for key, value in data.items():

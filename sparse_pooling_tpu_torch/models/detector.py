@@ -1,6 +1,9 @@
 """The SHPL fusion detector: two VGG-pyramid branches with SHPL fusion both
 ways, the crop-based RPN with top-k + greedy NMS, the stage-2 head, and the
-decode with per-class BEV NMS.
+decode with per-class BEV NMS; and what every family shares: ``Family``,
+both RPN heads, the proposal step (``rpn_proposals``), ``detector_outputs``,
+the stage-2 crops and the final NMS. ``top_k_nms_batch`` and ``nms_batch``
+are looked up here at each call, so wrapping them reaches every family.
 
 Port of ``sparse_pooling_tpu.models.detector``, eval and train: training
 keeps ``train_nms_size`` proposals, detaches them where
@@ -24,8 +27,9 @@ dim; feature maps are NHWC. Every option of the reference's detector:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -50,6 +54,18 @@ from sparse_pooling_tpu_torch.runtime.profiling import span
 # stage-2 regression width per ``avod.box_rep``; "offsets" is the rcnn
 # family's (models/fusion_rcnn.py)
 STAGE2_BOX_DIMS = {"offsets": 6, "box_4c": 10, "box_8c": 24}
+
+
+class Family(NamedTuple):
+    """One detector family: what ``models.pipeline`` needs of it."""
+
+    model: type  # the nn.Module, built as model(cfg, extents)
+    anchor_grid: Callable  # (cfg, extents) -> the static grid, numpy [N, 8] f32 with y = 0
+    # (batch, anchors_frame, occupancy, cfg, extents) -> {"anchors": [B, A, 8],
+    # "anchor_valid": [B, A], the family's own inputs}
+    frame_inputs: Callable
+    decode: Callable  # (outputs, ground_plane, cfg, extents) -> the final detections
+    check: Callable = lambda cfg: None  # (cfg): raises ValueError beyond make_model's shared checks
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -82,6 +98,29 @@ class RpnHead(nn.Module):
         x = rois.reshape(b, a, -1)
         x = torch.relu(self.fc2(torch.relu(self.fc1(x))))
         return self.objectness(x), self.offsets(x)
+
+
+class ConvRpnHead(nn.Module):
+    """Dense RPN: 3x3 conv and ReLU in the compute dtype, then 1x1
+    objectness (2R) and offsets (6R) in f32."""
+
+    def __init__(self, in_channels: int, channels: int, anchors_per_cell: int, dtype):
+        super().__init__()
+        self.r = anchors_per_cell
+        self.rpn_conv = Conv(in_channels, channels, 3, dtype)
+        self.objectness = Conv(channels, 2 * anchors_per_cell, 1)
+        self.offsets = Conv(channels, 6 * anchors_per_cell, 1)
+
+    def forward(self, feat: torch.Tensor):
+        """[B, Hf, Wf, C] -> objectness [B, Hf*Wf*R, 2], offsets [B, Hf*Wf*R, 6]:
+        the layers return NHWC, so a cell's R anchors are adjacent, as the
+        anchor grid lays them out."""
+
+        x = torch.relu(self.rpn_conv(feat))
+        obj, off = self.objectness(x), self.offsets(x)
+        b, hf, wf = obj.shape[:3]
+        n = hf * wf * self.r
+        return obj.reshape(b, n, 2).float(), off.reshape(b, n, 6).float()
 
 
 class Stage2Head(nn.Module):
@@ -182,6 +221,59 @@ def px_scales(cfg: ModelConfig, extents: AreaExtents, device):
     img_h, img_w = cfg.image.height, cfg.image.width
     return (torch.tensor([grid_h - 1.0, grid_w - 1.0] * 2, device=device),
             torch.tensor([img_h - 1.0, img_w - 1.0] * 2, device=device))
+
+
+def rpn_quad(cfg: ModelConfig, extents: AreaExtents) -> int:
+    """The side Q of the AVOD RPN's filter unit: ``rpn.roi_quad`` where the
+    QxQ-block anchor filter applies (not on the dense grid), else 1. The
+    anchor filter and the RPN crop both read it: the crop's window grows by
+    the spread of a unit's positions."""
+
+    if cfg.rpn.dense_grid or not anchor_ops.quad_supported(
+            cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad):
+        return 1
+    return cfg.rpn.roi_quad
+
+
+def rpn_proposals(inputs: Dict[str, Any], objectness: torch.Tensor, offsets: torch.Tensor, cfg: ModelConfig,
+                  extents: AreaExtents, train: bool = False, mask: bool = True) -> Dict[str, torch.Tensor]:
+    """The proposal step of every family: the RPN's ``offsets`` [B, A, 6] on
+    ``inputs["anchors"]``, the softmax of ``objectness`` [B, A, 2] as the
+    score (-inf at an invalid anchor with ``mask``), then the top-k and the
+    greedy BEV NMS to ``rpn.train_nms_size`` (``train``) or
+    ``rpn.eval_nms_size`` proposals. The selection passes no gradient: NMS
+    runs on detached copies; the gathered proposals keep theirs. -> the
+    RPN's outputs, in ``detector_outputs``' order."""
+
+    proposals_all = encoders.offset_to_anchor(inputs["anchors"][..., :6], offsets)
+    scores_all = torch.softmax(objectness, dim=-1)[..., 1]
+    if mask:
+        scores_all = torch.where(inputs["anchor_valid"], scores_all, -torch.inf)
+    with span("detector.rpn_nms"):
+        sel = top_k_nms_batch(
+            projection.project_to_bev(proposals_all, extents).detach(), scores_all.detach(),
+            cfg.rpn.train_nms_size if train else cfg.rpn.eval_nms_size,
+            iou_threshold=cfg.rpn.nms_iou_thresh, pre_top_k=cfg.rpn.pre_nms_top_k,
+        )
+    return {
+        "objectness": objectness,
+        "rpn_offsets": offsets,
+        "anchors": inputs["anchors"],
+        "anchor_valid": inputs["anchor_valid"],
+        "proposals": torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6)),
+        "proposal_scores": torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0),
+        "proposal_valid": sel.valid,
+    }
+
+
+def detector_outputs(rpn: Dict[str, torch.Tensor], head) -> Dict[str, torch.Tensor]:
+    """A forward's outputs: ``flip_logits`` first where the stage-2 head has
+    one, the RPN's (``rpn_proposals``), then ``cls_logits``, ``box_offsets``
+    and ``orientation``. ``head`` is ``Stage2Head``'s return."""
+
+    cls_logits, box_offsets, orientation, flip_logits = head
+    extra = {} if flip_logits is None else {"flip_logits": flip_logits}
+    return {**extra, **rpn, "cls_logits": cls_logits, "box_offsets": box_offsets, "orientation": orientation}
 
 
 def stage2_rois(bev_feat, img_feat, proposals, p2, cfg: ModelConfig, extents: AreaExtents,
@@ -329,16 +421,10 @@ class SparsePoolingDetector(nn.Module):
 
             # RPN
             anchors = inputs["anchors"][..., :6]
-            anchor_valid = inputs["anchor_valid"]
             bev_boxes = projection.project_to_bev(anchors, ext)
             img_boxes = projection.project_to_image_space(anchors, inputs["p2"], img_hw)
             bev_px_scale, img_px_scale = px_scales(c, ext, anchors.device)
-            quad = (
-                c.rpn.roi_quad
-                if not c.rpn.dense_grid and anchor_ops.quad_supported(
-                    c.anchors, c.bev, ext, c.anchors.max_anchors, c.rpn.roi_quad)
-                else 1
-            )
+            quad = rpn_quad(c, ext)
             n_var = len(c.anchors.sizes) * len(c.anchors.rotations) * quad * quad
             s = c.rpn.proposal_roi_size
             # strided: the grouped window crop; stride 1: exact crops, the BEV
@@ -356,44 +442,18 @@ class SparsePoolingDetector(nn.Module):
             denom = torch.clamp_min(bev_keep + img_keep, 1.0)[:, None, None, None, None]
             rois = (bev_rois + img_rois.to(bev_rois.dtype)) / denom.to(bev_rois.dtype)
 
-            objectness, offsets = self.rpn_head(rois)
-            proposals_all = encoders.offset_to_anchor(anchors, offsets)
-            scores_all = torch.softmax(objectness, dim=-1)[..., 1]
-            scores_all = torch.where(anchor_valid, scores_all, -torch.inf)
-            prop_bev_all = projection.project_to_bev(proposals_all, ext)
-            # the selection passes no gradient: NMS runs on detached copies
-            with span("detector.rpn_nms"):
-                sel = top_k_nms_batch(
-                    prop_bev_all.detach(), scores_all.detach(),
-                    c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
-                    iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
-                )
-            proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
-            proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+            rpn = rpn_proposals(inputs, *self.rpn_head(rois), c, ext, train)
             if c.avod.stop_gradient_proposals:
-                proposals = proposals.detach()
+                rpn["proposals"] = rpn["proposals"].detach()
 
             with span("detector.stage2"):
-                bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext,
+                bev_rois2, img_rois2 = stage2_rois(bev_feat, img_feat, rpn["proposals"], inputs["p2"], c, ext,
                                                    (c.avod.bev_roi_stride, c.avod.img_roi_stride))
-                cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
+                head = self.stage2_head(
                     [bev_rois2.to(torch.float32), img_rois2.to(torch.float32)], denom[..., 0, 0],
                     keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
                 )
-            extra = {} if flip_logits is None else {"flip_logits": flip_logits}
-            return {
-                **extra,
-                "objectness": objectness,
-                "rpn_offsets": offsets,
-                "anchors": inputs["anchors"],
-                "anchor_valid": anchor_valid,
-                "proposals": proposals,
-                "proposal_scores": proposal_scores,
-                "proposal_valid": sel.valid,
-                "cls_logits": cls_logits,
-                "box_offsets": box_offsets,
-                "orientation": orientation,
-            }
+            return detector_outputs(rpn, head)
 
 
 def decode_detections(
@@ -451,3 +511,37 @@ def per_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor, outputs: Dict
             "scores": torch.stack(all_scores, dim=1),
             "valid": torch.stack(all_valid, dim=1),
         }
+
+
+def avod_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
+    """The z-major position grid on the plane y = 0, [N, 8] f32."""
+
+    plane0 = np.array([0.0, -1.0, 0.0, 0.0])
+    return anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
+
+
+def avod_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tensor, cfg: ModelConfig,
+                      extents: AreaExtents) -> Dict[str, torch.Tensor]:
+    """Every grid anchor with the occupancy as a mask (``rpn.dense_grid``),
+    else the first ``anchors.max_anchors`` occupied QxQ blocks (``rpn_quad``)
+    or positions."""
+
+    thr = cfg.anchors.density_threshold
+    if cfg.rpn.dense_grid:
+        fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
+        return {"anchors": anchors_frame, "anchor_valid": (fp_counts >= thr).reshape(fp_counts.shape[0], -1)}
+    quad = rpn_quad(cfg, extents)
+    if quad > 1:
+        anchors, valid = anchor_ops.filter_anchor_quads_grid(
+            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
+            max_anchors=cfg.anchors.max_anchors, quad=quad, density_threshold=thr,
+        )
+    else:
+        anchors, valid = anchor_ops.filter_anchor_positions_grid(
+            anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
+            max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
+        )
+    return {"anchors": anchors, "anchor_valid": valid}
+
+
+FAMILY = Family(SparsePoolingDetector, avod_anchor_grid, avod_frame_inputs, decode_detections)

@@ -31,19 +31,12 @@ from torch import nn
 
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.backbone import VggPyramidExtractor
-from sparse_pooling_tpu_torch.models.detector import (
-    STAGE2_BOX_DIMS,
-    Stage2Head,
-    compute_dtype,
-    decode_detections,
-    per_class_nms,
-    stage2_rois,
-)
+from sparse_pooling_tpu_torch.models.detector import (STAGE2_BOX_DIMS, ConvRpnHead, Family, Stage2Head,
+                                                      compute_dtype, decode_detections, detector_outputs,
+                                                      per_class_nms, rpn_proposals, stage2_rois)
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
-from sparse_pooling_tpu_torch.models.layers import Conv
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import encoders, projection
-from sparse_pooling_tpu_torch.ops.nms import top_k_nms_batch
 from sparse_pooling_tpu_torch.runtime.profiling import span
 
 
@@ -57,27 +50,12 @@ def rcnn_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
                                           range(len(cfg.anchors.sizes)))
 
 
-class ConvRpnHead(nn.Module):
-    """Dense RPN: 3x3 conv and ReLU in the compute dtype, then 1x1
-    objectness (2R) and offsets (6R) in f32."""
+def rcnn_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tensor, cfg: ModelConfig,
+                      extents: AreaExtents) -> Dict[str, torch.Tensor]:
+    """The dense lattice grid on each frame's ground plane, every anchor valid."""
 
-    def __init__(self, in_channels: int, channels: int, anchors_per_cell: int, dtype):
-        super().__init__()
-        self.r = anchors_per_cell
-        self.rpn_conv = Conv(in_channels, channels, 3, dtype)
-        self.objectness = Conv(channels, 2 * anchors_per_cell, 1)
-        self.offsets = Conv(channels, 6 * anchors_per_cell, 1)
-
-    def forward(self, feat: torch.Tensor):
-        """[B, Hf, Wf, C] -> objectness [B, Hf*Wf*R, 2], offsets [B, Hf*Wf*R, 6]:
-        the layers return NHWC, so a cell's R anchors are adjacent, as the
-        anchor grid lays them out."""
-
-        x = torch.relu(self.rpn_conv(feat))
-        obj, off = self.objectness(x), self.offsets(x)
-        b, hf, wf = obj.shape[:3]
-        n = hf * wf * self.r
-        return obj.reshape(b, n, 2).float(), off.reshape(b, n, 6).float()
+    return {"anchors": anchors_frame,
+            "anchor_valid": torch.ones(anchors_frame.shape[:2], dtype=torch.bool, device=anchors_frame.device)}
 
 
 class FusionRcnn(nn.Module):
@@ -114,8 +92,8 @@ class FusionRcnn(nn.Module):
     def forward(self, inputs: Dict[str, Any], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """inputs as ``SparsePoolingDetector.forward`` takes them, with the
-        dense grid from ``rcnn_anchor_grid`` as ``anchors`` (``anchor_valid``
-        and ``path_keep`` are not read). ``train`` selects the training
+        dense grid from ``rcnn_anchor_grid`` as ``anchors`` (``anchor_valid``,
+        all true, is passed through unread; ``path_keep`` is not read). ``train`` selects the training
         proposals and dropout (masks from ``generator``)."""
 
         c = self.cfg
@@ -130,45 +108,20 @@ class FusionRcnn(nn.Module):
                 bev_mid_f = self.bev_fusion(bev_mid, img_mid, inputs["m_bev"])
                 img_mid_f = self.img_fusion(img_mid, bev_mid, inputs["m_fv"])
 
-            # dense conv RPN on the fused BEV mid lattice
-            objectness, offsets = self.rpn_head(bev_mid_f)
-            anchors = inputs["anchors"][..., :6]
-            proposals_all = encoders.offset_to_anchor(anchors, offsets)
-            scores_all = torch.softmax(objectness, dim=-1)[..., 1]
-            # the selection passes no gradient: NMS runs on detached copies
-            with span("detector.rpn_nms"):
-                sel = top_k_nms_batch(
-                    projection.project_to_bev(proposals_all, ext).detach(), scores_all.detach(),
-                    c.rpn.train_nms_size if train else c.rpn.eval_nms_size,
-                    iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
-                )
-            proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
-            proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+            # dense conv RPN on the fused BEV mid lattice, every anchor valid
+            rpn = rpn_proposals(inputs, *self.rpn_head(bev_mid_f), c, ext, train, mask=False)
 
             with span("detector.decode_maps"):
                 bev_feat = self.bev_extractor.decode(bev_mid_f, bev_skips)
                 img_feat = self.img_extractor.decode(img_mid_f, img_skips)
             # stage 2: the mean of both views' exact crops on the decoded maps
             with span("detector.stage2"):
-                bev_rois, img_rois = stage2_rois(bev_feat, img_feat, proposals, inputs["p2"], c, ext)
+                bev_rois, img_rois = stage2_rois(bev_feat, img_feat, rpn["proposals"], inputs["p2"], c, ext)
                 rois = (bev_rois.to(torch.float32) + img_rois.to(torch.float32)) / 2.0
-                cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(
+                head = self.stage2_head(
                     [rois], None, keep_prob=c.avod.keep_dropout_prob if train else 1.0, generator=generator,
                 )
-            extra = {} if flip_logits is None else {"flip_logits": flip_logits}
-            return {
-                **extra,
-                "objectness": objectness,
-                "rpn_offsets": offsets,
-                "anchors": inputs["anchors"],
-                "anchor_valid": torch.ones(anchors.shape[:2], dtype=torch.bool, device=anchors.device),
-                "proposals": proposals,
-                "proposal_scores": proposal_scores,
-                "proposal_valid": sel.valid,
-                "cls_logits": cls_logits,
-                "box_offsets": box_offsets,
-                "orientation": orientation,
-            }
+            return detector_outputs(rpn, head)
 
 
 def decode_rcnn_detections(
@@ -193,3 +146,7 @@ def decode_rcnn_detections(
     boxes_3d = encoders.anchor_to_box_3d(refined, ry)
     return per_class_nms(boxes_3d, projection.project_to_bev(refined, extents), outputs, cfg)
 
+
+
+FAMILY = Family(FusionRcnn, rcnn_anchor_grid, rcnn_frame_inputs,
+                lambda outputs, plane, cfg, extents: decode_rcnn_detections(outputs, cfg, extents, plane))

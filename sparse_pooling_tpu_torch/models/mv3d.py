@@ -28,19 +28,21 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.backbone import VggEncoder, space_to_depth
-from sparse_pooling_tpu_torch.models.detector import STAGE2_BOX_DIMS, Stage2Head, compute_dtype, px_scales
+from sparse_pooling_tpu_torch.models.detector import (STAGE2_BOX_DIMS, ConvRpnHead, Family, Stage2Head,
+                                                      compute_dtype, decode_detections, detector_outputs,
+                                                      px_scales, rpn_proposals)
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
-from sparse_pooling_tpu_torch.models.fusion_rcnn import ConvRpnHead
-from sparse_pooling_tpu_torch.ops import encoders, projection
+from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
+from sparse_pooling_tpu_torch.ops import bev_device, projection
 from sparse_pooling_tpu_torch.ops.crop_resize import crop_and_resize_px_batch
-from sparse_pooling_tpu_torch.ops.front_view import FV_CHANNELS
-from sparse_pooling_tpu_torch.ops.nms import top_k_nms_batch
+from sparse_pooling_tpu_torch.ops.front_view import FV_CHANNELS, front_view_batch
 from sparse_pooling_tpu_torch.runtime.profiling import span
 
 N_VIEWS = 3  # BEV, front view, image
@@ -154,35 +156,52 @@ class Mv3d(nn.Module):
                 bev_mid_f = self.bev_fusion(bev_mid, img_mid, inputs["m_bev"])
                 img_mid_f = self.img_fusion(img_mid, bev_mid, inputs["m_fv"])
 
-            objectness, offsets = self.rpn_head(upsample(bev_mid_f, c.mv3d.proposal_upsample))
-            anchors = inputs["anchors"][..., :6]
-            anchor_valid = inputs["anchor_valid"]
-            proposals_all = encoders.offset_to_anchor(anchors, offsets)
-            scores_all = torch.where(anchor_valid, torch.softmax(objectness, dim=-1)[..., 1], -torch.inf)
-            with span("detector.rpn_nms"):
-                sel = top_k_nms_batch(
-                    projection.project_to_bev(proposals_all, ext), scores_all, c.rpn.eval_nms_size,
-                    iou_threshold=c.rpn.nms_iou_thresh, pre_top_k=c.rpn.pre_nms_top_k,
-                )
-            proposals = torch.gather(proposals_all, 1, sel.indices[..., None].expand(-1, -1, 6))
-            proposal_scores = torch.where(sel.valid, torch.gather(scores_all, 1, sel.indices), 0.0)
+            rpn = rpn_proposals(inputs, *self.rpn_head(upsample(bev_mid_f, c.mv3d.proposal_upsample)), c, ext)
 
             with span("detector.stage2"):
                 with span("detector.stage2.crops"):
-                    views = self.stage2_views(bev_mid_f, fv_mid, img_mid_f, proposals, inputs["p2"])
+                    views = self.stage2_views(bev_mid_f, fv_mid, img_mid_f, rpn["proposals"], inputs["p2"])
                 with span("detector.stage2.head"):
-                    cls_logits, box_offsets, orientation, flip_logits = self.stage2_head(views, float(N_VIEWS))
-            extra = {} if flip_logits is None else {"flip_logits": flip_logits}
-            return {
-                **extra,
-                "objectness": objectness,
-                "rpn_offsets": offsets,
-                "anchors": inputs["anchors"],
-                "anchor_valid": anchor_valid,
-                "proposals": proposals,
-                "proposal_scores": proposal_scores,
-                "proposal_valid": sel.valid,
-                "cls_logits": cls_logits,
-                "box_offsets": box_offsets,
-                "orientation": orientation,
-            }
+                    head = self.stage2_head(views, float(N_VIEWS))
+            return detector_outputs(rpn, head)
+
+
+def mv3d_check(cfg: ModelConfig) -> None:
+    """The mv3d section is there, and its proposal lattice is the fusion
+    lattice upsampled by ``mv3d.proposal_upsample`` at ``anchors.stride``."""
+
+    if not hasattr(cfg, "mv3d"):
+        raise ValueError("architecture 'mv3d' needs its mv3d section: a Mv3dModelConfig")
+    s, up = cfg.sparse_pool.fusion_stride, cfg.mv3d.proposal_upsample
+    if up < 1 or s % up or abs(cfg.anchors.stride - cfg.bev.voxel_size * (s // up)) > 1e-6:
+        raise ValueError(
+            f"mv3d.proposal_upsample={up} must divide the fusion stride {s}, and anchors.stride "
+            f"({cfg.anchors.stride}) must be the proposal lattice's spacing"
+        )
+
+
+def mv3d_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
+    """The proposal lattice [N, 8] f32 with y = 0, every size a car anchor
+    (class 0)."""
+
+    return anchor_ops.lattice_anchor_grid(cfg.anchors, cfg.bev, extents, proposal_stride(cfg),
+                                          [0] * len(cfg.anchors.sizes))
+
+
+def mv3d_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tensor, cfg: ModelConfig,
+                      extents: AreaExtents) -> Dict[str, torch.Tensor]:
+    """The proposal lattice with its empty anchors masked, the front view
+    and the BEV intensity raster."""
+
+    valid = anchor_ops.lattice_anchor_valid(occupancy, extents, cfg.bev, cfg.anchors, proposal_stride(cfg))
+    with span("inputs.front_view"):
+        return {
+            "anchors": anchors_frame,
+            "anchor_valid": valid,
+            "fv_input": front_view_batch(batch.points, batch.points_mask, batch.ground_plane, cfg.mv3d),
+            "bev_intensity": bev_device.bev_intensity_batch(
+                batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev),
+        }
+
+
+FAMILY = Family(Mv3d, mv3d_anchor_grid, mv3d_frame_inputs, decode_detections, mv3d_check)

@@ -1,19 +1,20 @@
 """End-to-end pipeline: raw batch -> model outputs -> detections or losses.
 
 Port of ``sparse_pooling_tpu.models.pipeline``: the voxelizer (packed
-where the backbone packs, else the full raster), the in-graph image resize,
-the SHPL COO build and the anchor set (the quad or the position filter, the
-dense grid's occupancy mask over every anchor with ``rpn.dense_grid``, the
-dense lattice grid, all valid, for ``architecture="rcnn"``, or the stride-4
-proposal lattice with its empty anchors masked for ``architecture="mv3d"``,
-which also builds its front view and BEV intensity) build the model inputs
-on the device; ``forward_batch_fn`` runs the detector (serving under
-``no_grad``; ``train=True`` with path drop and dropout drawn from a
-``torch.Generator``), ``decode_batch`` the final NMS and ``loss_batch`` the
-training losses, each dispatched on the architecture: the AVOD-style
-``SparsePoolingDetector``, the MV3D-style ``FusionRcnn`` or MV3D as
-published, ``Mv3d`` (serving only). Entry points take ``device`` (default
-``"cuda"``) and raise when it is unavailable.
+where the backbone packs, else the full raster), the in-graph image resize
+and the SHPL COO build make the shared model inputs on the device;
+``forward_batch_fn`` runs the detector (serving under ``no_grad``;
+``train=True`` with path drop and dropout drawn from a ``torch.Generator``),
+``decode_batch`` the final NMS and ``loss_batch`` the training losses.
+
+What differs by ``cfg.architecture`` comes from one table, ``FAMILIES``:
+the ``models.detector.Family`` each family module ends with (model, anchor
+grid, a frame's anchors and own inputs, decode, check). The families: the
+AVOD-style ``SparsePoolingDetector`` (``models.detector``), the MV3D-style
+``FusionRcnn`` (``models.fusion_rcnn``) and MV3D as published, ``Mv3d``
+(``models.mv3d``, serving only). A new family is its module, its
+configuration section and one entry here. Entry points take ``device``
+(default ``"cuda"``) and raise when it is unavailable.
 """
 
 from __future__ import annotations
@@ -26,18 +27,10 @@ import torch
 
 from sparse_pooling_tpu_torch import resolve_device
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
-from sparse_pooling_tpu_torch.models import draws
-from sparse_pooling_tpu_torch.models.detector import SparsePoolingDetector, decode_detections
-from sparse_pooling_tpu_torch.models.fusion_rcnn import (
-    FusionRcnn,
-    decode_rcnn_detections,
-    rcnn_anchor_grid,
-)
+from sparse_pooling_tpu_torch.models import detector, draws, fusion_rcnn, mv3d
+from sparse_pooling_tpu_torch.models.detector import Family
 from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
-from sparse_pooling_tpu_torch.models.mv3d import Mv3d, proposal_stride
-from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
-from sparse_pooling_tpu_torch.ops.front_view import front_view_batch
 from sparse_pooling_tpu_torch.ops.image_resize import resize_bilinear_batch
 from sparse_pooling_tpu_torch.runtime.profiling import span
 
@@ -54,6 +47,18 @@ class RawSample(NamedTuple):
     gt_valid: torch.Tensor  # [B, G] bool
     gt_classes: torch.Tensor  # [B, G] int32
     image_scale: Any = None  # [B, 2] f32 (sy, sx) = canvas / raw, or None
+
+
+# architecture -> its family: the one place the port names them
+FAMILIES = {"avod": detector.FAMILY, "rcnn": fusion_rcnn.FAMILY, "mv3d": mv3d.FAMILY}
+
+
+def family(cfg: ModelConfig) -> Family:
+    """The family of ``cfg.architecture``; raises for an unknown one."""
+
+    if cfg.architecture not in FAMILIES:
+        raise ValueError(f"unknown architecture '{cfg.architecture}'")
+    return FAMILIES[cfg.architecture]
 
 
 # fields and bytes ``stack_frames`` staged since import: pinned (a card) or plain
@@ -99,19 +104,10 @@ def stack_frames(frames: Sequence[Dict[str, np.ndarray]], device="cuda") -> RawS
 
 
 def static_anchor_grid(cfg: ModelConfig, extents: AreaExtents, device="cuda") -> torch.Tensor:
-    """Anchor grid constant [N, 8] f32 with y = 0 (filled per frame): the
-    z-major position grid, the rcnn family's dense fusion lattice, or MV3D's
-    proposal lattice (every size a car anchor, class 0)."""
+    """The family's anchor grid constant [N, 8] f32 with y = 0 (filled per
+    frame) on ``device``."""
 
-    if cfg.architecture == "rcnn":
-        grid = rcnn_anchor_grid(cfg, extents)
-    elif cfg.architecture == "mv3d":
-        grid = anchor_ops.lattice_anchor_grid(cfg.anchors, cfg.bev, extents, proposal_stride(cfg),
-                                              [0] * len(cfg.anchors.sizes))
-    else:
-        plane0 = np.array([0.0, -1.0, 0.0, 0.0])
-        grid = anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
-    return torch.from_numpy(grid).to(resolve_device(device))
+    return torch.from_numpy(family(cfg).anchor_grid(cfg, extents)).to(resolve_device(device))
 
 
 def anchors_with_ground_y(anchors_static: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
@@ -126,8 +122,8 @@ def anchors_with_ground_y(anchors_static: torch.Tensor, plane: torch.Tensor) -> 
 
 
 def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="cuda"):
-    """Build the detector of ``cfg.architecture`` (``SparsePoolingDetector``,
-    ``FusionRcnn`` or ``Mv3d``) on ``device`` in eval mode (parameters from PyTorch's
+    """Build the detector of ``cfg.architecture`` (its family's model) on
+    ``device`` in eval mode (parameters from PyTorch's
     default init; load ``weights.from_flax`` or ``weights.init_like_flax``
     before use)."""
 
@@ -167,19 +163,9 @@ def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="c
             f"anchors.max_anchors={cfg.anchors.max_anchors} must be divisible "
             "by the class x rotation variant count"
         )
-    if cfg.architecture == "mv3d":
-        if not hasattr(cfg, "mv3d"):
-            raise ValueError("architecture 'mv3d' needs its mv3d section: a Mv3dModelConfig")
-        up = cfg.mv3d.proposal_upsample
-        if up < 1 or s % up or abs(cfg.anchors.stride - cfg.bev.voxel_size * (s // up)) > 1e-6:
-            raise ValueError(
-                f"mv3d.proposal_upsample={up} must divide the fusion stride {s}, and anchors.stride "
-                f"({cfg.anchors.stride}) must be the proposal lattice's spacing"
-            )
-    families = {"avod": SparsePoolingDetector, "rcnn": FusionRcnn, "mv3d": Mv3d}
-    if cfg.architecture not in families:
-        raise ValueError(f"unknown architecture '{cfg.architecture}'")
-    return families[cfg.architecture](cfg, extents).to(dev).eval()
+    fam = family(cfg)
+    fam.check(cfg)
+    return fam.model(cfg, extents).to(dev).eval()
 
 
 def build_model_inputs_batch(
@@ -189,7 +175,8 @@ def build_model_inputs_batch(
     cfg: ModelConfig,
     extents: AreaExtents,
 ) -> Dict[str, Any]:
-    """Batch-native input construction on the batch's device."""
+    """Batch-native input construction on the batch's device: the shared
+    inputs and the family's (``Family.frame_inputs``)."""
 
     with span("inputs"):
         h, w = cfg.bev.grid_hw(extents)
@@ -226,47 +213,17 @@ def build_model_inputs_batch(
                 batch.points, batch.points_mask, extents, cfg.bev.voxel_size
             )
 
-        anchors_frame = anchors_with_ground_y(anchors_static, batch.ground_plane)
-        extra = {}
-        if cfg.architecture == "rcnn":  # the dense lattice grid, every anchor valid
-            anchors, valid = anchors_frame, torch.ones(anchors_frame.shape[:2], dtype=torch.bool,
-                                                       device=anchors_frame.device)
-        elif cfg.architecture == "mv3d":  # the proposal lattice, empty anchors masked
-            anchors = anchors_frame
-            valid = anchor_ops.lattice_anchor_valid(occupancy, extents, cfg.bev, cfg.anchors,
-                                                    proposal_stride(cfg))
-            with span("inputs.front_view"):
-                extra = {
-                    "fv_input": front_view_batch(batch.points, batch.points_mask, batch.ground_plane, cfg.mv3d),
-                    "bev_intensity": bev_device.bev_intensity_batch(
-                        batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev),
-                }
-        elif cfg.rpn.dense_grid:  # every grid anchor, occupancy as a mask
-            fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
-            anchors, valid = anchors_frame, (fp_counts >= thr).reshape(fp_counts.shape[0], -1)
-        elif anchor_ops.quad_supported(
-            cfg.anchors, cfg.bev, extents, cfg.anchors.max_anchors, cfg.rpn.roi_quad
-        ):
-            anchors, valid = anchor_ops.filter_anchor_quads_grid(
-                anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-                max_anchors=cfg.anchors.max_anchors, quad=cfg.rpn.roi_quad, density_threshold=thr,
-            )
-        else:
-            anchors, valid = anchor_ops.filter_anchor_positions_grid(
-                anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
-                max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
-            )
+        frame = family(cfg).frame_inputs(batch, anchors_with_ground_y(anchors_static, batch.ground_plane),
+                                         occupancy, cfg, extents)
         return {
             "bev_input": bev_input,
             "bev_pre_packed": packed,
             "image": image,
             "m_bev": m_bev,
             "m_fv": m_fv,
-            "anchors": anchors,
-            "anchor_valid": valid,
+            **frame,
             "p2": batch.p2,
             "path_keep": path_keep,
-            **extra,
         }
 
 
@@ -333,6 +290,4 @@ def decode_batch(outputs, ground_plane: torch.Tensor, cfg: ModelConfig, extents:
     """Final detections: boxes_3d [B, C, K, 7], scores [B, C, K], valid."""
 
     with span("decode"):
-        if cfg.architecture == "rcnn":
-            return decode_rcnn_detections(outputs, cfg, extents, ground_plane=ground_plane)
-        return decode_detections(outputs, ground_plane, cfg, extents)
+        return family(cfg).decode(outputs, ground_plane, cfg, extents)

@@ -326,8 +326,9 @@ def quad_supported(
     max_anchors: int,
     quad: int,
 ) -> bool:
-    """Whether QxQ-block filtering applies (the pipeline and the detector
-    must agree: the ROI-group width follows the filter's unit size)."""
+    """Whether QxQ-block filtering applies (``models.detector.rpn_quad``
+    reads it for both the anchor filter and the RPN crop: the ROI-group
+    width follows the filter's unit size)."""
 
     if quad <= 1:
         return False

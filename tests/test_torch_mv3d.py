@@ -92,7 +92,7 @@ def served():
     """The port's serving path on two frames at the small config, seeded
     random weights: inputs, outputs, detections, the RPN's NMS result."""
 
-    from sparse_pooling_tpu_torch.models import mv3d
+    from sparse_pooling_tpu_torch.models import detector
 
     cfg = small_config()
     model = pl.make_model(cfg, EXT, device="cpu")
@@ -102,20 +102,20 @@ def served():
             p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[1:].numel() ** -0.5 if p.dim() > 1 else 0.1))
     batch = pl.stack_frames(frames(cfg), device="cpu")
     anchors = pl.static_anchor_grid(cfg, EXT, device="cpu")
-    kept, nms = {}, mv3d.top_k_nms_batch
+    kept, nms = {}, detector.top_k_nms_batch
 
     def recorded(*args, **kwargs):
         kept["rpn"] = nms(*args, **kwargs)
         return kept["rpn"]
 
-    mv3d.top_k_nms_batch = recorded
+    detector.top_k_nms_batch = recorded
     try:
         with torch.no_grad():
             inputs = pl.build_model_inputs_batch(batch, anchors, torch.ones(2, 2), cfg, EXT)
             out = model(inputs)
             det = pl.decode_batch(out, batch.ground_plane, cfg, EXT)
     finally:
-        mv3d.top_k_nms_batch = nms
+        detector.top_k_nms_batch = nms
     state = {k: v.detach() for k, v in model.state_dict().items()}
     return cfg, batch, inputs, out, det, state, kept["rpn"]
 
