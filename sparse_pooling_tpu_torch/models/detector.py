@@ -66,6 +66,9 @@ class Family(NamedTuple):
     frame_inputs: Callable
     decode: Callable  # (outputs, ground_plane, cfg, extents) -> the final detections
     check: Callable = lambda cfg: None  # (cfg): raises ValueError beyond make_model's shared checks
+    # frame_inputs waits on nothing on the host (no value read back, no size from the data), so
+    # the input build may replay as CUDA graphs (models.pipeline.build_model_inputs_batch)
+    frame_inputs_wait_free: bool = False
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -544,4 +547,6 @@ def avod_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tenso
     return {"anchors": anchors, "anchor_valid": valid}
 
 
-FAMILY = Family(SparsePoolingDetector, avod_anchor_grid, avod_frame_inputs, decode_detections)
+# the anchor filter's tier compaction waits on the host (ops/anchors._tiered_first_k)
+FAMILY = Family(SparsePoolingDetector, avod_anchor_grid, avod_frame_inputs, decode_detections,
+                frame_inputs_wait_free=False)

@@ -149,4 +149,5 @@ def decode_rcnn_detections(
 
 
 FAMILY = Family(FusionRcnn, rcnn_anchor_grid, rcnn_frame_inputs,
-                lambda outputs, plane, cfg, extents: decode_rcnn_detections(outputs, cfg, extents, plane))
+                lambda outputs, plane, cfg, extents: decode_rcnn_detections(outputs, cfg, extents, plane),
+                frame_inputs_wait_free=True)

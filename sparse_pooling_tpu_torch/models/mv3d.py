@@ -204,4 +204,5 @@ def mv3d_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tenso
         }
 
 
-FAMILY = Family(Mv3d, mv3d_anchor_grid, mv3d_frame_inputs, decode_detections, mv3d_check)
+FAMILY = Family(Mv3d, mv3d_anchor_grid, mv3d_frame_inputs, decode_detections, mv3d_check,
+                frame_inputs_wait_free=True)

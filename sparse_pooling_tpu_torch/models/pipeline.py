@@ -20,6 +20,7 @@ configuration section and one entry here. Entry points take ``device``
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -32,6 +33,7 @@ from sparse_pooling_tpu_torch.models.detector import Family
 from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
 from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
 from sparse_pooling_tpu_torch.ops.image_resize import resize_bilinear_batch
+from sparse_pooling_tpu_torch.runtime.graphs import GraphedCall
 from sparse_pooling_tpu_torch.runtime.profiling import span
 
 
@@ -168,6 +170,55 @@ def make_model(cfg: ModelConfig, extents: AreaExtents = AreaExtents(), device="c
     return fam.model(cfg, extents).to(dev).eval()
 
 
+# the fields of a RawSample the input build reads, image_scale aside
+_BUILD_FIELDS = ("points", "points_mask", "ground_plane", "p2", "image")
+# input signature -> its graphs.GraphedCall
+_INPUT_GRAPHS: Dict[tuple, GraphedCall] = {}
+_INPUT_GRAPHS_LOCK = threading.Lock()
+_INPUT_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def input_graph_counts() -> Dict[str, int]:
+    """The calls of ``build_model_inputs_batch`` in this process: those
+    that captured their signature's graphs (``captures``), replayed them
+    (``replays``, a capturing call included) or built eagerly (``eager``)."""
+
+    with _INPUT_GRAPHS_LOCK:
+        return dict(_INPUT_GRAPH_COUNTS)
+
+
+def _count(name: str) -> None:
+    with _INPUT_GRAPHS_LOCK:
+        _INPUT_GRAPH_COUNTS[name] += 1
+
+
+def _build_tensors(batch: RawSample, anchors_static: torch.Tensor, path_keep: torch.Tensor):
+    return [getattr(batch, n) for n in _BUILD_FIELDS] + (
+        [batch.image_scale] if batch.image_scale is not None else []) + [anchors_static, path_keep]
+
+
+def input_signature(batch: RawSample, anchors_static: torch.Tensor, path_keep: torch.Tensor,
+                    cfg: ModelConfig, extents: AreaExtents) -> tuple:
+    """Everything that changes the input build's device work: the device,
+    each tensor it reads (shape, dtype, strides; whether ``image_scale`` is
+    there), the configuration and the extents; and whether inference mode
+    is on, which makes the tensors it writes inference tensors."""
+
+    tensors = _build_tensors(batch, anchors_static, path_keep)
+    return (batch.points.device, batch.image_scale is not None, torch.is_inference_mode_enabled(),
+            tuple((t.shape, t.dtype, t.stride()) for t in tensors), cfg, extents)
+
+
+def _graphs_apply(tensors, cfg: ModelConfig) -> bool:
+    """Whether the input build of ``tensors`` (``_build_tensors``) replays
+    graphs: on a card, autograd off, neither compiled nor traced (an
+    export's fake tensors are a subclass), a family whose ``frame_inputs``
+    wait on nothing on the host."""
+
+    return (tensors[0].is_cuda and not torch.is_grad_enabled() and family(cfg).frame_inputs_wait_free
+            and all(type(t) is torch.Tensor for t in tensors) and not torch.compiler.is_compiling())
+
+
 def build_model_inputs_batch(
     batch: RawSample,
     anchors_static: torch.Tensor,
@@ -176,55 +227,93 @@ def build_model_inputs_batch(
     extents: AreaExtents,
 ) -> Dict[str, Any]:
     """Batch-native input construction on the batch's device: the shared
-    inputs and the family's (``Family.frame_inputs``)."""
+    inputs and the family's (``Family.frame_inputs``).
+
+    Where ``_graphs_apply``, the first call of each ``input_signature``
+    captures the build as CUDA graphs and every call replays them
+    (``runtime/graphs.GraphedCall``: the same kernels, so the same bits, and
+    tensors the caller owns); a call that finds its signature's graphs busy
+    on another thread builds eagerly, as every other call does."""
 
     with span("inputs"):
-        h, w = cfg.bev.grid_hw(extents)
-        hp, _ = cfg.bev.padded_hw(extents)
-        # packed where the backbone packs anyway (bit-identical inputs); an odd
-        # lattice with space_to_depth fails in the encoder, as in the reference
-        packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
-        if packed:
-            bev_input, counts = bev_device.bev_maps_packed_batch(
-                batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-            )
-        else:
-            bev_input = bev_device.bev_maps_from_points_batch(
-                batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-            )
-        if cfg.image.device_resize and batch.image_scale is not None:
-            image = resize_bilinear_batch(batch.image, batch.image_scale)
-        else:
-            image = batch.image.to(torch.float32) / 255.0
-        m_bev, m_fv = sparse_build.build_coo_device(
-            batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
+        tensors = _build_tensors(batch, anchors_static, path_keep)
+        if _graphs_apply(tensors, cfg):
+            key = input_signature(batch, anchors_static, path_keep, cfg, extents)
+            with _INPUT_GRAPHS_LOCK:
+                graph = _INPUT_GRAPHS.get(key)
+                if graph is None:
+                    scaled = batch.image_scale is not None
+
+                    def build(*args):  # the captured tensors, in _build_tensors' order
+                        fields = dict(zip(_BUILD_FIELDS, args))
+                        sample = RawSample(**fields, gt_boxes_3d=None, gt_valid=None, gt_classes=None,
+                                           image_scale=args[len(_BUILD_FIELDS)] if scaled else None)
+                        return _build_inputs(sample, args[-2], args[-1], cfg, extents)
+
+                    graph = _INPUT_GRAPHS[key] = GraphedCall(build)
+            if graph.lock.acquire(blocking=False):
+                try:
+                    if not graph.captured:
+                        _count("captures")
+                    out = graph(tensors)
+                finally:
+                    graph.lock.release()
+                _count("replays")
+                return out
+        _count("eager")
+        return _build_inputs(batch, anchors_static, path_keep, cfg, extents)
+
+
+def _build_inputs(batch: RawSample, anchors_static: torch.Tensor, path_keep: torch.Tensor, cfg: ModelConfig,
+                  extents: AreaExtents) -> Dict[str, Any]:
+    """The input build's device work."""
+
+    h, w = cfg.bev.grid_hw(extents)
+    hp, _ = cfg.bev.padded_hw(extents)
+    # packed where the backbone packs anyway (bit-identical inputs); an odd
+    # lattice with space_to_depth fails in the encoder, as in the reference
+    packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
+    if packed:
+        bev_input, counts = bev_device.bev_maps_packed_batch(
+            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+        )
+    else:
+        bev_input = bev_device.bev_maps_from_points_batch(
+            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+        )
+    if cfg.image.device_resize and batch.image_scale is not None:
+        image = resize_bilinear_batch(batch.image, batch.image_scale)
+    else:
+        image = batch.image.to(torch.float32) / 255.0
+    m_bev, m_fv = sparse_build.build_coo_device(
+        batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
+    )
+
+    # occupancy raster: a 0/1 indicator for threshold <= 1 (the tier ranking
+    # sums this raster), raw counts above
+    thr = cfg.anchors.density_threshold
+    if packed:
+        occupancy = bev_device.unpack_s2d_raster(
+            counts if thr > 1 else (counts > 0).to(torch.float32), h)
+    elif thr <= 1:
+        occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
+    else:
+        occupancy = bev_device.bev_counts_from_points(
+            batch.points, batch.points_mask, extents, cfg.bev.voxel_size
         )
 
-        # occupancy raster: a 0/1 indicator for threshold <= 1 (the tier ranking
-        # sums this raster), raw counts above
-        thr = cfg.anchors.density_threshold
-        if packed:
-            occupancy = bev_device.unpack_s2d_raster(
-                counts if thr > 1 else (counts > 0).to(torch.float32), h)
-        elif thr <= 1:
-            occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
-        else:
-            occupancy = bev_device.bev_counts_from_points(
-                batch.points, batch.points_mask, extents, cfg.bev.voxel_size
-            )
-
-        frame = family(cfg).frame_inputs(batch, anchors_with_ground_y(anchors_static, batch.ground_plane),
-                                         occupancy, cfg, extents)
-        return {
-            "bev_input": bev_input,
-            "bev_pre_packed": packed,
-            "image": image,
-            "m_bev": m_bev,
-            "m_fv": m_fv,
-            **frame,
-            "p2": batch.p2,
-            "path_keep": path_keep,
-        }
+    frame = family(cfg).frame_inputs(batch, anchors_with_ground_y(anchors_static, batch.ground_plane),
+                                     occupancy, cfg, extents)
+    return {
+        "bev_input": bev_input,
+        "bev_pre_packed": packed,
+        "image": image,
+        "m_bev": m_bev,
+        "m_fv": m_fv,
+        **frame,
+        "p2": batch.p2,
+        "path_keep": path_keep,
+    }
 
 
 def sample_path_keep(generator: Optional[torch.Generator], cfg: ModelConfig,

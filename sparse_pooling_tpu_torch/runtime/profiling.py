@@ -30,6 +30,14 @@ fields and bytes staged each way), ``inputs``
 ``detector.stage2`` inside it (MV3D's with ``detector.stage2.crops``, the
 three views' crops, and ``detector.stage2.head``, the deep-fusion head,
 inside it), ``decode`` (``decode_batch``) with ``decode.nms`` inside it.
+
+Where the input build replays CUDA graphs (``pipeline.build_model_inputs_batch``
+on a card, autograd off, a family whose ``frame_inputs`` wait on nothing), a
+captured call's graphs are split at its spans (``runtime/graphs.py``), so
+``inputs`` times the copies in, the replay and the copies out, and
+``inputs.front_view`` the front view's own graph; ``pipeline.input_graph_counts``
+counts the captures, the replays and the calls built eagerly.
+:func:`routed` sends a block's spans elsewhere: nowhere, or to a capture.
 """
 
 from __future__ import annotations
@@ -99,6 +107,9 @@ class Collection:
         self.stack: List[_Span] = []
         self.spans: List[_Span] = []
 
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
     def next_request(self) -> int:
         """Starts a new request: the spans that follow belong to it. Returns its id."""
 
@@ -145,7 +156,21 @@ def span(name: str):
     col = _active
     if col is None or col.thread != threading.get_ident():
         return _NOOP
-    return _Span(col, name)
+    return col.span(name)
+
+
+@contextlib.contextmanager
+def routed(target):
+    """Sends the spans of the block to ``target``: ``None`` turns them off,
+    else anything with a ``thread`` (the ident whose spans it takes) and a
+    ``span(name)`` that returns a context, as a :class:`Collection` has."""
+
+    global _active
+    outer, _active = _active, target
+    try:
+        yield target
+    finally:
+        _active = outer
 
 
 @contextlib.contextmanager
@@ -154,13 +179,8 @@ def collect(device=None):
     :class:`Collection` that keeps them; CUDA events time the spans on
     ``device``'s current stream where it is a card."""
 
-    global _active
-    col, outer = Collection(device), _active
-    _active = col
-    try:
+    with routed(Collection(device)) as col:
         yield col
-    finally:
-        _active = outer
 
 
 @contextlib.contextmanager
