@@ -4,19 +4,26 @@
 ``pipeline.model.architecture``. It gives:
 
   MODEL              the float32 reference model class (its module under
-                     ``reference/``), built as ``MODEL(cfg, extents)``;
+                     ``reference/``, or the family file itself), built as
+                     ``MODEL(cfg, extents)`` and called as ``model(inputs)``;
+                     a two-stage model also takes ``picks=`` and
+                     ``proposals=``, which replace its RPN's NMS and the
+                     boxes stage 2 crops at;
   PORT_NMS_MODULES   the port's modules (dotted names) whose module-level
                      ``top_k_nms_batch`` (the RPN's) and ``nms_batch`` (the
                      final per-class NMS) the timed path calls: the
                      harness's recorder and the planted faults wrap them;
-  FUSION_LAYERS      the module names of its SHPL fusion layers, the same in
-                     the port and the reference (``fusion`` reads the widest
-                     gap over those present);
+  FUSION_LAYERS      the module names of its fusion layers, which carry the
+                     image's features into the BEV (and back), SHPL or
+                     other: the same names in the port and the reference
+                     (``fusion`` reads the widest gap over those present);
   NMS_SPANS          the program's spans that hold its greedy NMS calls;
   feature_layers(names)
                      ``{"rpn": ..., "s2": ...}``: the module names whose
                      outputs feed the RPN's and stage 2's heads, from the
-                     set of the model's module names;
+                     set of the model's module names; a one-stage family's
+                     is ``{"rpn": ...}`` alone, its dense head's hidden
+                     layer;
   anchor_grid(cfg, extents)
                      the static anchor grid, numpy [N, 8] f32 with y = 0;
   frame_anchors(anchors_frame, occupancy, cfg, extents)
@@ -24,7 +31,9 @@
                      from the grid on each frame's ground plane and the BEV
                      occupancy raster;
   decode(outputs, ground_plane, cfg, extents, picks)
-                     the final detections (``picks`` replaces the final NMS);
+                     the final detections (``picks`` replaces the final NMS),
+                     with ``picks``, ``bev_all`` and ``class_scores`` as
+                     ``reference/detector.per_class_nms`` gives them;
   flops(cfg, extents)
                      the model FLOPs of one frame's serving forward, built
                      from ``harness/flops.py``'s shared counts;
@@ -32,6 +41,19 @@
 
 and, where the family has them:
 
+  STAGES             1 or 2 (the default): the detector's stages. Two stages
+                     pick proposals by the RPN's NMS (``top_k_nms_batch``),
+                     run stage 2 over them and decode its heads; one stage
+                     decodes its dense head at every anchor, and its
+                     detections are its final per-class NMS's picks alone
+                     (the ``nms_batch`` calls of ``PORT_NMS_MODULES``; it
+                     calls no ``top_k_nms_batch``). The numbers the judge
+                     reads, and so the limits a cell of the family names,
+                     follow from it (``harness/judge.py``);
+  SHARED_INPUTS      the shared model inputs its model reads, each recorded
+                     and compared by ``inputs``: by default every one
+                     (``DEFAULT_SHARED_INPUTS``); a family that pools no SHPL
+                     table leaves out ``m_bev`` and ``m_fv``;
   MODEL_KEYS         ``{key: parse}`` for ``pipeline.model`` keys that
                      ``reference/config.py`` does not know: ``parse(value)``
                      gives the key's value in the parsed configuration;
@@ -44,7 +66,8 @@ and, where the family has them:
                      generator's (``traffic/frames.py``), drawn from the
                      frame's own ``seed``.
 
-A new family is a new file here and its reference model module; nothing in
+A new family is a new file here and its reference model (a module of its
+own, or in the family file); nothing in
 ``harness/``, ``reference/pipeline.py``, ``reference/config.py``,
 ``run.py`` or ``control.py`` names one.
 """
@@ -70,7 +93,11 @@ def _same_frame(frame: Dict, seed: int) -> Dict:
     return frame
 
 
-OPTIONAL = {"MODEL_KEYS": {}, "INPUTS": (), "extra_inputs": _no_inputs, "frame": _same_frame}
+# the model inputs the shared input build makes (``reference/pipeline.py``)
+DEFAULT_SHARED_INPUTS = ("bev_input", "bev_pre_packed", "image", "anchors", "anchor_valid", "m_bev", "m_fv")
+
+OPTIONAL = {"STAGES": 2, "SHARED_INPUTS": DEFAULT_SHARED_INPUTS, "MODEL_KEYS": {}, "INPUTS": (),
+            "extra_inputs": _no_inputs, "frame": _same_frame}
 
 # loaded family files by resolved path: one module a file, so that the
 # classes a file defines are the same on every lookup
@@ -97,6 +124,8 @@ def load(architecture: str, bench_dir: Optional[Path] = None) -> ModuleType:
     for name, default in OPTIONAL.items():
         if not hasattr(module, name):
             setattr(module, name, default)
+    if module.STAGES not in (1, 2):
+        raise ValueError(f"family file {path} has STAGES = {module.STAGES!r}: 1 or 2")
     _LOADED[path] = module
     return module
 

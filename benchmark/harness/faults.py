@@ -13,6 +13,11 @@ reads them on the card, the rehearsal tests on the CPU.
   mirrored_heading  every final heading negated (``ry`` -> ``-ry``);
   flipped_side      every final heading turned by pi (the flip head's side
                     inverted).
+
+Each reaches a one-stage family as it reaches a two-stage one: its
+detections are its final per-class NMS's picks (``wrong_pick``'s
+``nms_batch``), and the other four alter ``decode_batch``'s output, which
+every family's detections leave through.
 """
 
 from __future__ import annotations

@@ -32,14 +32,16 @@ picks are: how far the reference's flip logit of the port's side lies below
 its best.
 
 The numbers compared, each the widest over the sampled requests:
-  inputs     model inputs (BEV maps, image, SHPL tables, anchors, and those
-             the family adds): the largest gap over the largest value of the
-             tensor; 1 where an index or a mask differs;
-  fusion     the family's SHPL fusion layers' outputs (the pooled features
+  inputs     model inputs (BEV maps, image, anchors, the shared ones the
+             family reads, ``SHARED_INPUTS``, and those it adds): the
+             largest gap over the largest value of the tensor; 1 where an
+             index or a mask differs;
+  fusion     the family's fusion layers' outputs (SHPL: the pooled features
              through kernel A, mixed): the widest relative L2 gap;
-  rpn        the RPN's last hidden features at the valid anchors (the AVOD
-             family's FC over the fused crops of kernel C, the rcnn family's
-             conv over the fused map): relative L2 gap;
+  rpn        the RPN's (a one-stage family's dense head's) last hidden
+             features at the valid anchors (the AVOD family's FC over the
+             fused crops of kernel C, the rcnn family's conv over the fused
+             map): relative L2 gap;
   rpn_nms    the RPN picks' score gap (probability);
   proposals  the proposal boxes at the valid picks: largest gap (m);
   stage2     the stage-2 head's last hidden features at the valid proposals
@@ -52,6 +54,14 @@ The numbers compared, each the widest over the sampled requests:
   flip       the final boxes' heading side: the reference's flip-logit gap
              at the port's side (logit);
   scores     the final scores' largest gap (probability).
+
+Which of them a family reads follows from its file's ``STAGES``
+(``STAGE_NUMBERS``): two stages read all 11; one stage reads the 8 that are
+not ``rpn_nms``, ``proposals`` or ``stage2``, which it does not have (they
+are absent from its readings, not 0). A one-stage family's reference runs
+whole, with no picks or proposals handed over, and decodes at the port's
+final picks, which index its anchors; its heading's vector share is taken
+against the median over the valid anchors.
 
 ``verdict`` holds readings against a cell's limits, for a run and for the
 control alike. What differs by detector family (the layers read, the inputs
@@ -74,8 +84,18 @@ from reference.nms import NmsResult
 
 IOU_MARGIN = 0.05
 HEADING_SHARE = 1.0
-NUMBERS = ("inputs", "fusion", "rpn", "rpn_nms", "proposals", "stage2", "final_nms", "boxes", "heading", "flip",
-           "scores")
+# the numbers a family reads, by its file's STAGES
+STAGE_NUMBERS = {
+    2: ("inputs", "fusion", "rpn", "rpn_nms", "proposals", "stage2", "final_nms", "boxes", "heading", "flip",
+        "scores"),
+    1: ("inputs", "fusion", "rpn", "final_nms", "boxes", "heading", "flip", "scores"),
+}
+
+
+def numbers(family) -> tuple:
+    """The numbers the judge reads of ``family``, in order."""
+
+    return STAGE_NUMBERS[family.STAGES]
 
 
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -143,7 +163,7 @@ def feature_layers(model, family) -> Dict[str, str]:
 
 
 def fusion_layers(model, family) -> Dict[str, str]:
-    """The family's SHPL fusion layers that the model has, by name."""
+    """The family's fusion layers that the model has, by name."""
 
     names = dict(model.named_modules())
     return {name: name for name in family.FUSION_LAYERS if name in names}
@@ -177,21 +197,25 @@ def box_gap(port: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def heading_gaps(port_boxes: torch.Tensor, ref_boxes: torch.Tensor, valid: torch.Tensor, out: Dict,
-                 picks: torch.Tensor, from_vector: bool, shares: Sequence[float]) -> Dict[str, float]:
+                 candidates: torch.Tensor, picks: torch.Tensor, from_vector: bool,
+                 shares: Sequence[float]) -> Dict[str, float]:
     """The heading's line and side at the final detections: boxes [B, C, K,
-    7], ``valid`` [B, C, K], the reference's stage-2 ``out`` and the port's
-    picks [B, C, K] into its proposals. ``heading@<share>`` reads the line
+    7], ``valid`` [B, C, K], the reference's ``out`` with its heads at each
+    candidate the final NMS chose from (a two-stage family's proposals, a
+    one-stage family's anchors), the candidates' validity [B, N] and the
+    port's picks [B, C, K] into them. ``heading@<share>`` reads the line
     where the reference's orientation vector is at least ``share`` times its
-    frame's median (every detection where the line does not come from it)."""
+    frame's median over the valid candidates (every detection where the line
+    does not come from it)."""
 
     b, c, k = picks.shape
     flat = picks.reshape(b, c * k, 1).long()
     ry_p, ry_r = port_boxes[..., 6].double(), ref_boxes[..., 6].double()
     line = torch.abs(torch.remainder(ry_p - ry_r + math.pi / 2, math.pi) - math.pi / 2)
-    vec = torch.linalg.vector_norm(out["orientation"].double(), dim=-1)
-    med = torch.stack([torch.median(v[m]) if m.any() else v.new_tensor(0.0)
-                       for v, m in zip(vec, out["proposal_valid"])])
-    ratio = torch.gather(vec, 1, flat[..., 0]).reshape(b, c, k) / torch.clamp_min(med, 1e-30)[:, None, None]
+    if from_vector:
+        vec = torch.linalg.vector_norm(out["orientation"].double(), dim=-1)
+        med = torch.stack([torch.median(v[m]) if m.any() else v.new_tensor(0.0) for v, m in zip(vec, candidates)])
+        ratio = torch.gather(vec, 1, flat[..., 0]).reshape(b, c, k) / torch.clamp_min(med, 1e-30)[:, None, None]
     res = {}
     for share in shares:
         keep = valid & (ratio >= share) if from_vector else valid
@@ -214,12 +238,11 @@ def verdict(readings: Dict[str, float], limits: Dict[str, float]):
     return all(math.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values()), checks
 
 
-# the model inputs every family has; a family file's INPUTS add to them
-SHARED_INPUTS = ("bev_input", "bev_pre_packed", "image", "anchors", "anchor_valid", "m_bev", "m_fv")
-
-
 def input_keys(family) -> tuple:
-    return SHARED_INPUTS + tuple(family.INPUTS)
+    """The model inputs recorded and compared: the shared ones the family
+    reads, then its own."""
+
+    return tuple(family.SHARED_INPUTS) + tuple(family.INPUTS)
 
 
 def recorded_input(value):
@@ -288,6 +311,7 @@ class Reference:
         self.cfg, self.family = cell.model_cfg, cell.family
         self.ext = AreaExtents(**config["extents"]) if "extents" in config else AreaExtents()
         self.device = device
+        self.stages = self.family.STAGES
         self.model = ref_pl.make_model(self.cfg, self.ext, device, self.family)
         self.model.load_state_dict({k: v.float() for k, v in state.items()})
         self.lower = lower
@@ -301,14 +325,15 @@ class Reference:
     @torch.no_grad()
     def run(self, frames: Sequence[Dict[str, np.ndarray]], rpn_picks=None, final_picks=None, proposals=None):
         """Inputs, model outputs and detections of one request; with picks
-        and proposals, stage 2 and the decode follow them."""
+        and proposals, stage 2 and the decode follow them. A one-stage
+        model takes neither ``rpn_picks`` nor ``proposals``."""
 
         batch = ref_pl.stack_frames(frames, self.buckets, self.device)
         keep = torch.ones((len(frames), 2), dtype=torch.float32, device=self.device)
         inputs = ref_pl.build_model_inputs_batch(batch, self.anchors, keep, self.cfg, self.ext, self.family)
         if self.lower is not None:  # the control computes its f32 stages in bf16
             inputs = dict(inputs, **{k: _bf16_rounded(inputs[k]) for k in self.inputs})
-        out = self.model(inputs, picks=rpn_picks, proposals=proposals)
+        out = self.model(inputs, picks=rpn_picks, proposals=proposals) if self.stages == 2 else self.model(inputs)
         out["features"], out["fused"] = dict(self.features.out), dict(self.fused.out)
         det = ref_pl.decode_batch(out, batch.ground_plane, self.cfg, self.ext, picks=final_picks,
                                   family=self.family)
@@ -319,16 +344,18 @@ class Reference:
         timed path leaves (``serve.Recorder``)."""
 
         inputs, out, det = self.run(frames)
-        return {
+        rec = {
             "request": request, "ids": list(ids),
             "inputs": {k: recorded_input(inputs[k]) for k in self.inputs},
             "fused": out["fused"],
             "features": out["features"],
             "out": {k: out[k] for k in OUT_KEYS if k in out},
-            "rpn": (out["rpn_picks"].indices, out["rpn_picks"].valid),
             "final": [(p.indices, p.valid) for p in det["picks"]],
             "det": {k: det[k].cpu() for k in ("boxes_3d", "scores", "valid")},
         }
+        if self.stages == 2:
+            rec["rpn"] = (out["rpn_picks"].indices, out["rpn_picks"].valid)
+        return rec
 
 
 OUT_KEYS = ("objectness", "rpn_offsets", "anchor_valid", "proposals", "proposal_valid", "cls_logits",
@@ -352,32 +379,38 @@ def judge(records: List[Dict], frames: Sequence[Dict[str, np.ndarray]], ref: Ref
     adds ``heading@<share>``, the heading's line read at other shares."""
 
     shares = [HEADING_SHARE] + [s for s in heading_shares if s != HEADING_SHARE]
-    worst = dict.fromkeys(NUMBERS + tuple(f"heading@{s:g}" for s in shares[1:]), 0.0)
+    two = ref.stages == 2
+    worst = dict.fromkeys(numbers(ref.family) + tuple(f"heading@{s:g}" for s in shares[1:]), 0.0)
 
     def take(name, value):
         worst[name] = max(worst[name], _finite(float(value)))
 
     for rec in records:
         rec = to_device(rec, ref.device)
-        rpn_picks = NmsResult(*rec["rpn"])
         final_picks = [NmsResult(*p) for p in rec["final"]]
-        inputs, out, det = ref.run([frames[i] for i in rec["ids"]], rpn_picks, final_picks,
-                                   rec["out"]["proposals"].float())
+        frames_of = [frames[i] for i in rec["ids"]]
+        if two:
+            rpn_picks = NmsResult(*rec["rpn"])
+            inputs, out, det = ref.run(frames_of, rpn_picks, final_picks, rec["out"]["proposals"].float())
+        else:
+            inputs, out, det = ref.run(frames_of, final_picks=final_picks)
         take("inputs", inputs_gap(rec["inputs"], inputs, ref.inputs))
         take("fusion", fusion_gap(rec["fused"], out["fused"]))
         po, pf, rf = rec["out"], rec["features"], out["features"]
-        av = out["anchor_valid"]
-        if pf["rpn"].shape != rf["rpn"].shape or po["objectness"].shape != out["objectness"].shape:
+        av = inputs["anchor_valid"]
+        if pf["rpn"].shape != rf["rpn"].shape or ("objectness" in out and (
+                "objectness" not in po or po["objectness"].shape != out["objectness"].shape)):
             take("rpn", float("inf"))
         else:  # the AVOD head's features are per anchor; the rcnn conv's per cell
             rpn_valid = av if rf["rpn"].dim() == 3 else slice(None)
             take("rpn", rel_l2(pf["rpn"][rpn_valid], rf["rpn"][rpn_valid]))
-        take("rpn_nms", pick_gap(out["prop_bev_all"], out["scores_all"], rpn_picks.indices,
-                                 rpn_picks.valid, ref.cfg.rpn.nms_iou_thresh))
-        pv = out["proposal_valid"]
-        take("proposals", (po["proposals"][pv].double() - out["own_proposals"][pv].double()).abs().max().item()
-             if pv.any() else 0.0)
-        take("stage2", rel_l2(pf["s2"][pv], rf["s2"][pv]) if pf["s2"].shape == rf["s2"].shape else float("inf"))
+        if two:
+            take("rpn_nms", pick_gap(out["prop_bev_all"], out["scores_all"], rpn_picks.indices,
+                                     rpn_picks.valid, ref.cfg.rpn.nms_iou_thresh))
+            pv = out["proposal_valid"]
+            take("proposals", (po["proposals"][pv].double() - out["own_proposals"][pv].double()).abs().max().item()
+                 if pv.any() else 0.0)
+            take("stage2", rel_l2(pf["s2"][pv], rf["s2"][pv]) if pf["s2"].shape == rf["s2"].shape else float("inf"))
         for ci, p in enumerate(final_picks):
             take("final_nms", pick_gap(det["bev_all"], det["class_scores"][..., ci], p.indices, p.valid,
                                        ref.cfg.avod.nms_iou_thresh))
@@ -389,8 +422,8 @@ def judge(records: List[Dict], frames: Sequence[Dict[str, np.ndarray]], ref: Ref
             take("boxes", box_gap(pd["boxes_3d"][valid].double(), det["boxes_3d"][valid].double()))
             take("scores", (pd["scores"][valid].double() - det["scores"][valid].double()).abs().max().item())
         picks = torch.stack([p.indices for p in final_picks], dim=1)
-        gaps = heading_gaps(pd["boxes_3d"], det["boxes_3d"], valid, out, picks,
-                            ref.cfg.avod.box_rep == "offsets", shares)
+        gaps = heading_gaps(pd["boxes_3d"], det["boxes_3d"], valid, out, out["proposal_valid"] if two else av,
+                            picks, ref.cfg.avod.box_rep == "offsets", shares)
         gaps["heading"] = gaps.pop(f"heading@{HEADING_SHARE:g}")
         for name, value in gaps.items():
             take(name, value)

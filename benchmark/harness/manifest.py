@@ -18,6 +18,7 @@ from types import ModuleType
 from typing import Callable, Dict, List
 
 from families import load
+from harness.judge import numbers
 from reference.config import pipeline_config_from_dict
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
@@ -47,6 +48,7 @@ class Cell:
         # the reference's parse of the configuration, and its family's file
         self.model_cfg = pipeline_config_from_dict(self.config["pipeline"], self.bench_dir).model
         self.family = load(self.model_cfg.architecture, self.bench_dir)
+        check_limits(name, self.model_cfg.architecture, self.family, self.workload["limits"])
 
     def end_to_end(self) -> List[Dict]:
         """The manifest's end-to-end metrics this cell reports."""
@@ -68,6 +70,21 @@ class Cell:
         the port's (module, attribute) to record, and ``bound``."""
 
         return {p.stem: _load(p, "bench_kernel") for p in sorted((self.bench_dir / "kernels").glob("*.py"))}
+
+
+def check_limits(cell: str, architecture: str, family: ModuleType, limits: Dict) -> None:
+    """Raises where a cell's limits name a number its family's judge does
+    not read, or leave out one it reads: no limit is vacuous, no number
+    unheld."""
+
+    reads = numbers(family)
+    extra = [k for k in limits if k not in reads]
+    missing = [k for k in reads if k not in limits]
+    faults = ([f"name {', '.join(extra)}, which it does not read"] if extra else []) + (
+        [f"leave out {', '.join(missing)}"] if missing else [])
+    if faults:
+        raise ValueError(f"cell {cell}: family {architecture!r} ({family.STAGES} stage(s)) reads "
+                         f"{', '.join(reads)}; its limits {' and '.join(faults)}")
 
 
 def _load(path: Path, prefix: str) -> ModuleType:

@@ -15,10 +15,15 @@ request's stages, and a few more requests after the window run under
 
 The judge needs the port's intermediate results: ``Recorder`` keeps a
 reference to what the NMS calls, the fusion layers and the layers feeding the
-heads return (wrappers of the family's port modules' NMS calls and four
-forward hooks, a few microseconds a request), and a seeded reservoir keeps
+heads return (wrappers of the family's port modules' NMS calls and a forward
+hook a layer, a few microseconds a request), and a seeded reservoir keeps
 the records of ``judge_requests`` requests, and the one with the most points,
-copied to the host so that they do not raise the device's peak. What differs
+copied to the host so that they do not raise the device's peak. A record's
+slots: ``fused`` and ``features`` (the hooks' outputs, by the judge's keys),
+``final`` (each ``nms_batch`` call's picks, a class each, in order) and, for
+a two-stage family alone, ``rpn`` (its one ``top_k_nms_batch`` call's
+picks); a request whose calls do not fill exactly the slots of the family's
+``STAGES`` fails the run, naming the family and the slot. What differs
 by detector family comes from the cell's family file
 (``families/<architecture>.py``); each hand kernel whose calls the profiled
 requests record has a file ``kernels/<op>.py``. With ``--trace 1`` the
@@ -47,9 +52,11 @@ class Recorder:
     """Keeps what the port's timed path returns at the NMS calls and the
     fusion layers of the current request."""
 
-    def __init__(self, model, family):
+    def __init__(self, model, family, architecture: str):
         self.current: Dict = {}
+        self.stages, self.architecture = family.STAGES, architecture
         self._undo = []
+        self._modules = family.PORT_NMS_MODULES
         for module in map(importlib.import_module, family.PORT_NMS_MODULES):
             for name in ("top_k_nms_batch", "nms_batch"):
                 if hasattr(module, name):
@@ -79,6 +86,21 @@ class Recorder:
         def hook(_module, _args, output):
             self.current.setdefault(group, {})[key] = output
         return hook
+
+    def picks(self) -> Dict:
+        """The current request's pick slots: ``final``, and ``rpn`` for two
+        stages; raises where the calls made other slots."""
+
+        cur = self.current
+        if self.stages == 1 and "rpn" in cur:
+            raise RuntimeError(f"family {self.architecture!r} has one stage, yet its timed path called "
+                               "top_k_nms_batch: a one-stage record has no 'rpn' slot")
+        for slot in ("rpn", "final") if self.stages == 2 else ("final",):
+            if slot not in cur:
+                call = "top_k_nms_batch" if slot == "rpn" else "nms_batch"
+                raise RuntimeError(f"family {self.architecture!r} ({self.stages} stage(s)) made no {call} call "
+                                   f"in {', '.join(self._modules)}: its record misses the {slot!r} slot")
+        return {slot: cur[slot] for slot in ("rpn", "final") if slot in cur}
 
     def close(self):
         for undo in reversed(self._undo):
@@ -146,7 +168,7 @@ class ServeRun:
         self.mix = cell.traffic
         self.frames = frame_pool(self.mix, self.cfg, self.seed, self.family)
         self.schedule = ServeSchedule(self.mix, self.seed)
-        self.recorder = Recorder(self.model, self.family)
+        self.recorder = Recorder(self.model, self.family, cell.model_cfg.architecture)
         self.reservoir = Reservoir(int(cell.workload["judge_requests"]), self.seed)
         self.inputs = judge.input_keys(self.family)
         # the yardstick's counts read the reference's parse of the configuration
@@ -194,7 +216,7 @@ class ServeRun:
         return _host({
             "request": i, "ids": list(ids),
             "inputs": {k: judge.recorded_input(inputs[k]) for k in self.inputs},
-            "fused": cur["fused"], "features": cur["features"], "rpn": cur["rpn"], "final": cur["final"],
+            "fused": cur["fused"], "features": cur["features"], **self.recorder.picks(),
             "out": {k: out[k] for k in judge.OUT_KEYS if k in out},
             "det": {k: torch.from_numpy(v) for k, v in host.items()},
         })
