@@ -187,7 +187,21 @@ non-zero):
    1e-5 of the live detections, A, C and NMS launched twice each a request,
    each request's latency beside the live pipeline's at the same size and
    phase 3's; one ``[serving export, phase 21]`` JSON line;
-22. one ``{"kernels": [...]}`` line (with each kernel's ``op_host_us``
+22. ContFuse (``contfuse_cars_config()``: one stage, continuous fusion, the
+   ``contfuse-serve-b8`` cell's model) at full width, batch 8, frames of
+   20,000 points (32,768 slots) with a seeded intensity: the KNN kernel
+   (``ops.knn.bev_knn_kernel``) at the served shapes (the four lattices'
+   187,000 query points, K = 3, 10 m) against its plain twin on the card,
+   bit for bit, with no host sync, its times, the twin's, its bound (its
+   bytes once) and the distances a query examined; the NMS over the
+   header's 70,400 candidates a frame (more than the kernel holds: the kept
+   set, ``nms.nms_batch``) at a warm-up request's call against the plain
+   loop over all of them, bit for bit, with no frame's kept set run dry;
+   then 3 requests with the counts read around exactly these (the KNN
+   once a request, from its device counters: it runs inside the input
+   graphs' replays, where no Python runs; the NMS once; A, B, C never),
+   latency, peak memory and a profiled request;
+23. one ``{"kernels": [...]}`` line (with each kernel's ``op_host_us``
    beside ``host_us``), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -393,12 +407,13 @@ def nbytes(*ts) -> int:
 
 @contextlib.contextmanager
 def recording(module, name: str, store: list):
-    """Record the arguments of ``module.name`` while the block runs."""
+    """Record the arguments of ``module.name`` while the block runs (the
+    keyword arguments' values after the positional ones)."""
 
     orig = getattr(module, name)
 
     def rec(*args, **kwargs):
-        store.append(args)
+        store.append(args + tuple(kwargs.values()))
         return orig(*args, **kwargs)
 
     setattr(module, name, rec)
@@ -1911,6 +1926,193 @@ def rcnn_serving_phase(device, cars_serving):
             "NMS_off_path": res_nms_more}
 
 
+# ------------------------------------------------------------ ContFuse
+
+CONTFUSE_POINTS = 20_000  # the cell's largest frames: 32,768 point slots
+
+
+def contfuse_batch(cfg, request: int, device):
+    """Phase 3's seeds at ``CONTFUSE_POINTS`` points, each point with an
+    intensity in [0, 1) drawn from its frame's seed (0 on padding), trimmed
+    to the bucket."""
+
+    frames = []
+    for i in range(BATCH):
+        seed = request * BATCH + i
+        f = synthetic_frame(cfg, n_points=CONTFUSE_POINTS, seed=seed, image="noise")
+        intensity = np.random.default_rng([seed, 4]).random(f["points"].shape[0], dtype=np.float32)
+        frames.append(dict(f, points=np.concatenate([f["points"], (intensity * f["points_mask"])[:, None]], 1)))
+    pts, mask = trim_points_to_bucket(
+        np.stack([f["points"] for f in frames]), np.stack([f["points_mask"] for f in frames]),
+        cfg.sparse_pool.buckets,
+    )
+    for f, p, m in zip(frames, pts, mask):
+        f["points"], f["points_mask"] = p, m
+    return frames, pl.stack_frames(frames, device=device)
+
+
+def knn_phase(cfg, ext, batch, flush) -> tuple:
+    """The KNN kernel at the served shapes (``batch``'s frames, the four
+    lattices' centres): its indices equal to the plain twin's on the card,
+    no host sync, its times as the other kernels', the twin's call time and
+    the bound (``benchmark/kernels/bev_knn.py``'s bytes: the points' x, z
+    and validity, the queries, the tables, once). Returns (the results, the
+    queries a call)."""
+
+    from sparse_pooling_tpu_torch.models import contfuse
+    from sparse_pooling_tpu_torch.ops import bev_device, knn
+
+    res = new_result()
+    cf = cfg.contfuse
+    points = batch.points.to(torch.float32).contiguous()
+    valid = bev_device.points_in_extents(batch.points, batch.points_mask, ext).contiguous()
+    queries = contfuse.knn_centres(batch.ground_plane, cfg, ext)[0, :, 0::2].contiguous()
+    area = contfuse.knn_area(cfg, ext)
+    b, p = valid.shape
+    q = queries.shape[0]
+    check(p == 32_768 and q == 187_000, f"KNN at {p} point slots and {q} queries, not the served 32,768 and 187,000")
+
+    def kernel_call():
+        return knn.bev_knn_kernel(points, valid, queries, cf.neighbours, cf.max_distance, *area)
+
+    def plain_call():
+        return knn.bev_knn_plain(points, valid, queries, cf.neighbours, cf.max_distance, *area)
+
+    before = knn.knn_counts()
+    got = kernel_call()
+    after = knn.knn_counts()
+    want = plain_call()
+    check(torch.equal(got, want), "KNN: indices other than the plain twin's at the served shapes")
+    found = (got < p).float().mean().item()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = kernel_call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(again, want), "KNN: other indices on a second call")
+    kern = timings(kernel_call, flush)
+    op_host(res, "KNN", lambda: torch.ops.spt.bev_knn(points, valid, queries, cf.neighbours, cf.max_distance,
+                                                      *area), kernel_call)
+    plain = median_ms(plain_call, reps=3, warmup=1)
+    need = b * p * (2 * 4 + 1) + q * 2 * 4 + b * q * cf.neighbours * 8
+    bnd = add_bound(res, need, 0)
+    examined = (after["examined"] - before["examined"]) / max(after["queries"] - before["queries"], 1)
+    print(f"  KNN {b} frames x {p} slots, {q} queries, K={cf.neighbours}, {cf.max_distance:g} m: the plain "
+          f"twin's indices bit for bit, no host sync; {found:.3f} of the slots hold a point; {examined:.1f} "
+          f"distances examined a query; kernel {timing_text(kern)}; twin {plain:.2f} ms call; bound {bnd:.6f} ms "
+          f"({need / 1e6:.1f} MB once)")
+    add_times(res, kern, plain, None)
+    return res, q
+
+
+def contfuse_phase(device, flush) -> dict:
+    """Phase 22: ``contfuse_cars_config()`` at full width: the KNN kernel
+    (``knn_phase``) and the NMS's kept set at the served shapes against
+    their plain twins, then ``REQUESTS`` requests of batch 8 with the counts
+    read around exactly these, and a profiled one."""
+
+    from sparse_pooling_tpu_torch.configs.presets import contfuse_cars_config
+    from sparse_pooling_tpu_torch.ops import knn
+
+    cfg = contfuse_cars_config().model
+    ext = AreaExtents()
+    model = pl.make_model(cfg, ext, device=device)
+    weights.init_like_flax(model, seed=0)
+    anchors = pl.static_anchor_grid(cfg, ext, device=device)
+    requests = [contfuse_batch(cfg, r, device) for r in range(REQUESTS)]
+    res_knn, queries = knn_phase(cfg, ext, requests[0][1], flush)
+
+    nms_calls = []
+    with recording(detector, "nms_batch", nms_calls):
+        run_request(model, requests[0][1], anchors, cfg, ext)
+    torch.cuda.synchronize()
+    check(len(nms_calls) == cfg.num_classes == 1, f"a ContFuse request made {len(nms_calls)} NMS calls, not 1")
+    boxes, scores, k, thr = nms_calls[0]
+    boxes, scores = boxes.contiguous(), scores.to(torch.float32).contiguous()
+    n = scores.shape[1]
+    check(n == 70_400 > nms.max_candidates(), f"{n} NMS candidates a frame, not 70,400 over the kernel's limit")
+    short = nms.short_frames()
+    got = nms.nms_batch(boxes, scores, k, thr)
+    want = nms.nms_batch_plain(boxes, scores, k, thr)
+    check(torch.equal(got.indices, want.indices) and torch.equal(got.valid, want.valid),
+          "NMS over ContFuse's 70,400 candidates: picks other than the plain loop's over the full set")
+    check(nms.short_frames() == short, "NMS over ContFuse's candidates: a frame's kept set ran dry")
+    res_nms = new_result()
+    kern = timings(lambda: nms.nms_batch(boxes, scores, k, thr), flush)
+    plain = median_ms(lambda: nms.nms_batch_plain(boxes, scores, k, thr), reps=3, warmup=1)
+    need = nbytes(boxes, scores, got.indices, got.valid)
+    bnd = add_bound(res_nms, need, 0)
+    valid = got.valid.sum(1)
+    print(f"  NMS {tuple(scores.shape)} -> {k} at IoU {thr:g} through the kept {nms.max_candidates()}: "
+          f"{int(valid.min())}-{int(valid.max())} valid picks a frame, the plain loop's over all {n} bit for "
+          f"bit (card), no kept set run dry; {timing_text(kern)}; plain loop {plain:.4f} ms call; bound {bnd:.6f} "
+          f"ms ({need / 1e6:.3f} MB once)")
+    add_times(res_nms, kern, plain, None)
+    del nms_calls, boxes, scores
+
+    reset_counts()
+    before, graphs, short = knn.knn_counts(), pl.input_graph_counts(), nms.short_frames()
+    torch.cuda.reset_peak_memory_stats()
+    request_ms = []
+    for r, (_, batch) in enumerate(requests):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, det = run_request(model, batch, anchors, cfg, ext)
+        end.record()
+        end.synchronize()
+        request_ms.append(start.elapsed_time(end))
+        check(all(bool(torch.isfinite(v).all()) for v in (det["boxes_3d"], det["scores"], out["cls_logits"],
+                                                          out["box_deltas"])), f"contfuse request {r}: non-finite")
+        check(det["boxes_3d"].shape == (BATCH, 1, cfg.avod.nms_size, 7),
+              f"contfuse request {r}: detections {tuple(det['boxes_3d'].shape)}")
+        n_valid = int(det["valid"].sum())
+        check(n_valid > 0, f"contfuse request {r}: no valid detections")
+        print(f"[contfuse serving] request {r}: {request_ms[-1]:.2f} ms for batch {BATCH}; {n_valid} valid "
+              f"detections; all outputs finite")
+    torch.cuda.synchronize()
+    launches = counts()
+    after, graphs_after = knn.knn_counts(), pl.input_graph_counts()
+    launches["KNN"] = (after["queries"] - before["queries"]) / (BATCH * queries)
+    replays = graphs_after["replays"] - graphs["replays"]
+    print(f"[contfuse serving] launches over {len(requests)} requests: "
+          + ", ".join(f"{k} {v:g}" for k, v in launches.items())
+          + f" (KNN from its device counters: {after['queries'] - before['queries']} queries; its Python wrapper "
+            f"{after['calls'] - before['calls']} times, the input graphs replayed {replays} times); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches["KNN"] == REQUESTS, f"the KNN kernel: {launches['KNN']:g} launches in {REQUESTS} requests")
+    check(launches["NMS"] == REQUESTS, f"the NMS kernel: {launches['NMS']} launches in {REQUESTS} requests")
+    check(launches["A"] == launches["B"] == launches["C"] == 0, "a ContFuse request launched A, B or C")
+    check(nms.short_frames() == short, "a served ContFuse request's NMS kept set ran dry")
+    profile_phase(model, requests[0][1], anchors, cfg, ext, float(np.median(request_ms)),
+                  label="contfuse serving: where the time goes")
+    return {"launches": launches, "request_ms": request_ms, "KNN": res_knn, "NMS": res_nms}
+
+
+def kernel_rows(entries) -> list:
+    """The ``kernels`` line's rows: (name, source, what it replaces,
+    launches, results) each."""
+
+    return [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n,
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"],
+         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+         "library_ms": r["library_ms"], "device_ms": r["device_ms"], "cold_ms": r["cold_ms"],
+         "host_us": r["host_us"], "op_host_us": r["op_host_us"], "library_device_ms": r["library_device_ms"],
+         "library_host_us": r["library_host_us"]}
+        for name, src, rep, n, r in entries
+    ]
+
+
+def contfuse_entry(contfuse: dict) -> tuple:
+    """The KNN kernel's row: launches over phase 22's requests."""
+
+    return ("bev_knn", "sparse_pooling_tpu_torch/csrc/bev_knn.cu", None, contfuse["launches"]["KNN"],
+            contfuse["KNN"])
+
+
 def rcnn_training_phase(device):
     """Phase 11: ``rcnn_cars_config()`` at full width, batch 8, Adam; A-bwd
     against its twin at one real step's inputs; ``Trainer.train`` for
@@ -3252,6 +3454,12 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     print("[serving export]")
     exported = export_phase(device, request_ms, {"A": launches_a, "C": launches_c})
 
+    # 22. ContFuse: the KNN kernel, the NMS's kept set, the served requests
+    print("[contfuse serving]")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    contfuse = contfuse_phase(device, flush)
+    del flush
+
     entries = [
         ("sparse_pool_patch", "sparse_pooling_tpu_torch/csrc/sparse_pool_patch.cu",
          "sparse_pooling_tpu/ops/sparse_pool.py:176", launches_a, res_a),
@@ -3268,6 +3476,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
         # two calls, launches over phase 10's requests
         ("greedy_nms", "sparse_pooling_tpu_torch/csrc/greedy_nms.cu",
          "sparse_pooling_tpu/ops/nms.py:_nms_batch", rcnn_serving["launches"]["NMS"], rcnn_serving["NMS"]),
+        # no JAX counterpart: the JAX package has no ContFuse
+        contfuse_entry(contfuse),
     ]
     print("[ell one frame] " + json.dumps({"replaces": "sparse_pooling_tpu/ops/pallas_sparse_pool.py:70",
                                            **one_frame}))
@@ -3289,6 +3499,9 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     print("[parallel/ phase 19] " + json.dumps(parallel))
     print("[learning path, phase 20] " + json.dumps(learning))
     print("[serving export, phase 21] " + json.dumps(exported))
+    print("[greedy NMS, contfuse kept set] " + json.dumps(contfuse["NMS"]))
+    print("[contfuse serving, phase 22] " + json.dumps({"launches": contfuse["launches"],
+                                                        "request_ms": contfuse["request_ms"]}))
     print("[window gather, rows 3-4] " + json.dumps({
         "replaces": ["tools/probe_pallas_roi.py:60", "tools/probe_pallas_roi.py:88"],
         "carried_by": "group_crop", "calls": windows}))
@@ -3296,17 +3509,8 @@ def main(device: str = "cuda", ell_baseline: str | None = None, a_baseline: str 
     # cold_ms and library_device_ms: device work; host_us and
     # library_host_us: host enqueue. Each sums the kernel's two calls (B: its
     # two directions at batch 8, the ELL path's calls; A-bwd and C-bwd: the
-    # two calls of one training step).
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n,
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"],
-         "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-         "library_ms": r["library_ms"], "device_ms": r["device_ms"], "cold_ms": r["cold_ms"],
-         "host_us": r["host_us"], "op_host_us": r["op_host_us"], "library_device_ms": r["library_device_ms"],
-         "library_host_us": r["library_host_us"]}
-        for name, src, rep, n, r in entries
-    ]}))
+    # two calls of one training step; the KNN: one call).
+    print(json.dumps({"kernels": kernel_rows(entries)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -350,7 +350,9 @@ class ModelConfig:
     # "avod": the flagship two-stage AVOD-style detector (crop-based RPN,
     # box_4c stage 2). "rcnn": the MV3D-style FusionRcnn second consumer
     # (dense conv RPN, anchor-offset stage 2). "mv3d": MV3D as published
-    # (models/mv3d.py; its configuration is a Mv3dModelConfig).
+    # (models/mv3d.py; its configuration is a Mv3dModelConfig). "contfuse":
+    # ContFuse, one stage, continuous fusion (models/contfuse.py; a
+    # ContfuseModelConfig).
     architecture: str = "avod"
     classes: Tuple[str, ...] = ("Car",)
     bev: BevConfig = BevConfig()
@@ -404,9 +406,45 @@ class Mv3dModelConfig(ModelConfig):
     mv3d: Mv3dConfig = Mv3dConfig()
 
 
+@_freeze
+class ContfuseConfig:
+    """ContFuse's own settings (Liang et al., "Deep Continuous Fusion for
+    Multi-Sensor 3D Object Detection", ECCV 2018), read by
+    ``architecture="contfuse"`` alone: the BEV occupancy's height range, the
+    two streams' widths and depths, and the continuous fusion's neighbours."""
+
+    # PIXOR's occupancy voxels (0.1 m, ``bev.voxel_size``) over this range of
+    # heights above the ground plane (m), and one reflectance channel
+    height_lo: float = -0.8
+    height_hi: float = 2.7
+    # the BEV stream: the plain group, then the four residual groups (their
+    # first conv at stride 2), convs a group and widths
+    bev_layers: Tuple[int, ...] = (2, 4, 8, 12, 12)
+    bev_channels: Tuple[int, ...] = (32, 64, 128, 192, 256)
+    fpn_channels: int = 128  # the top-down path's width: the header's input
+    # the image stream: ResNet-18's four groups (two basic blocks each), and
+    # the width they are combined at (stride 4)
+    image_blocks: Tuple[int, ...] = (2, 2, 2, 2)
+    image_channels: Tuple[int, ...] = (64, 128, 256, 512)
+    image_feature_channels: int = 128
+    # continuous fusion: each BEV pixel's K nearest LiDAR points in the BEV
+    # plane, none farther than max_distance (m), which is also the unit of
+    # the offsets x_j - x_i the fusion's MLP reads
+    neighbours: int = 3
+    max_distance: float = 10.0
+
+
+@_freeze
+class ContfuseModelConfig(ModelConfig):
+    """A ``ModelConfig`` with its ``contfuse`` section
+    (``architecture="contfuse"``)."""
+
+    contfuse: ContfuseConfig = ContfuseConfig()
+
+
 # architecture -> its ``ModelConfig`` with the family's own section, where
 # it has one (the others parse as ``ModelConfig``)
-FAMILY_MODEL_CONFIGS = {"mv3d": Mv3dModelConfig}
+FAMILY_MODEL_CONFIGS = {"mv3d": Mv3dModelConfig, "contfuse": ContfuseModelConfig}
 
 
 @_freeze

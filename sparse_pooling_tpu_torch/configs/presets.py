@@ -18,6 +18,7 @@ from sparse_pooling_tpu_torch.configs.config import (
     EvalConfig,
     ImageConfig,
     MiniBatchConfig,
+    ContfuseModelConfig,
     ModelConfig,
     Mv3dModelConfig,
     PipelineConfig,
@@ -136,6 +137,29 @@ def mv3d_cars_config() -> PipelineConfig:
     )
 
 
+def contfuse_cars_config() -> PipelineConfig:
+    """Cars with ContFuse (Liang et al., ECCV 2018): PIXOR's BEV occupancy
+    (0.1 m voxels over the 704x800 lattice, 35 height levels and the
+    reflectance) through a plain group of two 32-wide convs and four residual
+    groups of 4, 8, 12 and 12 convs (64, 128, 192, 256 wide), each group fed
+    by a continuous-fusion layer from the ResNet-18 image stream's combined
+    features at each BEV pixel's 3 nearest LiDAR points; a top-down path to
+    1/4 resolution and a 1x1 header, two anchors (0 and 90 deg) a cell, one
+    stage; per-class NMS at 0.1 keeping 100. The 384x1248 canvas of the rcnn
+    preset."""
+
+    return PipelineConfig(
+        checkpoint_name="contfuse_cars",
+        model=ContfuseModelConfig(
+            architecture="contfuse",
+            classes=("Car",),
+            # (l, w, h) of a car at 0 and 90 deg on the header's lattice (0.1 m voxels x stride 4)
+            anchors=AnchorConfig(stride=0.4, sizes=(CAR_SIZE,)),
+            avod=AvodStage2Config(nms_iou_thresh=0.1, nms_size=100),
+        ),
+    )
+
+
 def people_pyramid_config() -> PipelineConfig:
     """Pedestrian + Cyclist, shared config (reference people config)."""
 
@@ -232,6 +256,7 @@ def preset(name: str) -> PipelineConfig:
         "cars": cars_pyramid_config,
         "rcnn_cars": rcnn_cars_config,
         "mv3d_cars": mv3d_cars_config,
+        "contfuse_cars": contfuse_cars_config,
         "people": people_pyramid_config,
         "unittest": unittest_config,
     }

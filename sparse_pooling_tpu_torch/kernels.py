@@ -37,7 +37,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = ("sparse_pool_patch", "ell_sparse_pool", "group_crop", "greedy_nms")
+KERNEL_SOURCES = ("sparse_pool_patch", "ell_sparse_pool", "group_crop", "greedy_nms", "bev_knn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add contraction: the kernels' f32 geometry rounds at
@@ -67,6 +67,12 @@ SIGNATURES = {
     "greedy_nms": {
         "greedy_nms_max_candidates": ([], _I),
         "greedy_nms_launch": ([_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P], _I),
+    },
+    "bev_knn": {
+        "bev_knn_max_bins": ([], _I),
+        "bev_knn_k": ([], _I),
+        "bev_knn_launch": ([_P, _I, _I, _I, _P, _P, _I, _I] + [ctypes.c_float] * 3 + [_I, _I]
+                           + [ctypes.c_float] * 2 + [_P] * 6, _I),
     },
 }
 

@@ -27,7 +27,7 @@ dim; feature maps are NHWC. Every option of the reference's detector:
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ from sparse_pooling_tpu_torch.models import draws
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
 from sparse_pooling_tpu_torch.models.layers import Conv, Dense, avg_pool
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
-from sparse_pooling_tpu_torch.ops import encoders, projection
+from sparse_pooling_tpu_torch.ops import bev_device, encoders, projection, sparse_build
 from sparse_pooling_tpu_torch.ops.crop_resize import (
     crop_and_resize_batch,
     crop_and_resize_group_einsum_px,
@@ -61,8 +61,8 @@ class Family(NamedTuple):
 
     model: type  # the nn.Module, built as model(cfg, extents)
     anchor_grid: Callable  # (cfg, extents) -> the static grid, numpy [N, 8] f32 with y = 0
-    # (batch, anchors_frame, occupancy, cfg, extents) -> {"anchors": [B, A, 8],
-    # "anchor_valid": [B, A], the family's own inputs}
+    # (batch, anchors_frame, cfg, extents) -> {"anchors": [B, A, 8], "anchor_valid": [B, A], the
+    # inputs the family reads beyond the image (a family that fuses by SHPL: shpl_inputs)}
     frame_inputs: Callable
     decode: Callable  # (outputs, ground_plane, cfg, extents) -> the final detections
     check: Callable = lambda cfg: None  # (cfg): raises ValueError beyond make_model's shared checks
@@ -523,16 +523,52 @@ def avod_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
     return anchor_ops.generate_anchors_np(cfg.anchors, extents, plane0).astype(np.float32)
 
 
-def avod_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tensor, cfg: ModelConfig,
-                      extents: AreaExtents) -> Dict[str, torch.Tensor]:
-    """Every grid anchor with the occupancy as a mask (``rpn.dense_grid``),
-    else the first ``anchors.max_anchors`` occupied QxQ blocks (``rpn_quad``)
-    or positions."""
+def shpl_inputs(batch, cfg: ModelConfig, extents: AreaExtents) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """The inputs of a family that fuses by SHPL: the BEV height-slice maps
+    (``bev_input``, space-to-depth packed where the backbone packs anyway,
+    ``bev_pre_packed``: bit-identical inputs) and the SHPL tables (``m_bev``,
+    ``m_fv``); and the occupancy raster its anchors read, a 0/1 indicator
+    for ``anchors.density_threshold`` <= 1 (the tier ranking sums it), raw
+    counts above. An odd lattice with space_to_depth fails in the encoder,
+    as in the reference."""
 
+    h, w = cfg.bev.grid_hw(extents)
+    hp, _ = cfg.bev.padded_hw(extents)
+    packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
+    if packed:
+        bev_input, counts = bev_device.bev_maps_packed_batch(
+            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+        )
+    else:
+        bev_input = bev_device.bev_maps_from_points_batch(
+            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
+        )
+    m_bev, m_fv = sparse_build.build_coo_device(
+        batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
+    )
+    thr = cfg.anchors.density_threshold
+    if packed:
+        occupancy = bev_device.unpack_s2d_raster(counts if thr > 1 else (counts > 0).to(torch.float32), h)
+    elif thr <= 1:
+        occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
+    else:
+        occupancy = bev_device.bev_counts_from_points(batch.points, batch.points_mask, extents, cfg.bev.voxel_size)
+    return {"bev_input": bev_input, "bev_pre_packed": packed, "m_bev": m_bev, "m_fv": m_fv}, occupancy
+
+
+def avod_frame_inputs(batch, anchors_frame: torch.Tensor, cfg: ModelConfig,
+                      extents: AreaExtents) -> Dict[str, torch.Tensor]:
+    """The SHPL inputs (``shpl_inputs``); every grid anchor with the
+    occupancy as a mask (``rpn.dense_grid``), else the first
+    ``anchors.max_anchors`` occupied QxQ blocks (``rpn_quad``) or
+    positions."""
+
+    shared, occupancy = shpl_inputs(batch, cfg, extents)
     thr = cfg.anchors.density_threshold
     if cfg.rpn.dense_grid:
         fp_counts = anchor_ops.grid_occupancy_counts(occupancy, extents, cfg.bev, cfg.anchors)
-        return {"anchors": anchors_frame, "anchor_valid": (fp_counts >= thr).reshape(fp_counts.shape[0], -1)}
+        return {**shared, "anchors": anchors_frame,
+                "anchor_valid": (fp_counts >= thr).reshape(fp_counts.shape[0], -1)}
     quad = rpn_quad(cfg, extents)
     if quad > 1:
         anchors, valid = anchor_ops.filter_anchor_quads_grid(
@@ -544,7 +580,7 @@ def avod_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tenso
             anchors_frame, occupancy, extents, cfg.bev, cfg.anchors,
             max_anchors=cfg.anchors.max_anchors, density_threshold=thr,
         )
-    return {"anchors": anchors, "anchor_valid": valid}
+    return {**shared, "anchors": anchors, "anchor_valid": valid}
 
 
 # the anchor filter's tier compaction waits on the host (ops/anchors._tiered_first_k)

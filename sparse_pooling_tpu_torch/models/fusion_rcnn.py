@@ -33,7 +33,7 @@ from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.backbone import VggPyramidExtractor
 from sparse_pooling_tpu_torch.models.detector import (STAGE2_BOX_DIMS, ConvRpnHead, Family, Stage2Head,
                                                       compute_dtype, decode_detections, detector_outputs,
-                                                      per_class_nms, rpn_proposals, stage2_rois)
+                                                      per_class_nms, rpn_proposals, shpl_inputs, stage2_rois)
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import encoders, projection
@@ -50,11 +50,14 @@ def rcnn_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
                                           range(len(cfg.anchors.sizes)))
 
 
-def rcnn_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tensor, cfg: ModelConfig,
+def rcnn_frame_inputs(batch, anchors_frame: torch.Tensor, cfg: ModelConfig,
                       extents: AreaExtents) -> Dict[str, torch.Tensor]:
-    """The dense lattice grid on each frame's ground plane, every anchor valid."""
+    """The SHPL inputs (``detector.shpl_inputs``; no anchor reads the
+    occupancy); the dense lattice grid on each frame's ground plane, every
+    anchor valid."""
 
-    return {"anchors": anchors_frame,
+    shared, _ = shpl_inputs(batch, cfg, extents)
+    return {**shared, "anchors": anchors_frame,
             "anchor_valid": torch.ones(anchors_frame.shape[:2], dtype=torch.bool, device=anchors_frame.device)}
 
 

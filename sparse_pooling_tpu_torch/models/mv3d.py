@@ -37,7 +37,7 @@ from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
 from sparse_pooling_tpu_torch.models.backbone import VggEncoder, space_to_depth
 from sparse_pooling_tpu_torch.models.detector import (STAGE2_BOX_DIMS, ConvRpnHead, Family, Stage2Head,
                                                       compute_dtype, decode_detections, detector_outputs,
-                                                      px_scales, rpn_proposals)
+                                                      px_scales, rpn_proposals, shpl_inputs)
 from sparse_pooling_tpu_torch.models.fusion import SparsePoolFusion
 from sparse_pooling_tpu_torch.ops import anchors as anchor_ops
 from sparse_pooling_tpu_torch.ops import bev_device, projection
@@ -188,14 +188,17 @@ def mv3d_anchor_grid(cfg: ModelConfig, extents: AreaExtents) -> np.ndarray:
                                           [0] * len(cfg.anchors.sizes))
 
 
-def mv3d_frame_inputs(batch, anchors_frame: torch.Tensor, occupancy: torch.Tensor, cfg: ModelConfig,
+def mv3d_frame_inputs(batch, anchors_frame: torch.Tensor, cfg: ModelConfig,
                       extents: AreaExtents) -> Dict[str, torch.Tensor]:
-    """The proposal lattice with its empty anchors masked, the front view
-    and the BEV intensity raster."""
+    """The SHPL inputs (``detector.shpl_inputs``); the proposal lattice
+    with its empty anchors masked, the front view and the BEV intensity
+    raster."""
 
+    shared, occupancy = shpl_inputs(batch, cfg, extents)
     valid = anchor_ops.lattice_anchor_valid(occupancy, extents, cfg.bev, cfg.anchors, proposal_stride(cfg))
     with span("inputs.front_view"):
         return {
+            **shared,
             "anchors": anchors_frame,
             "anchor_valid": valid,
             "fv_input": front_view_batch(batch.points, batch.points_mask, batch.ground_plane, cfg.mv3d),

@@ -1,8 +1,9 @@
 """End-to-end pipeline: raw batch -> model outputs -> detections or losses.
 
 Port of ``sparse_pooling_tpu.models.pipeline``: the voxelizer (packed
-where the backbone packs, else the full raster), the in-graph image resize
-and the SHPL COO build make the shared model inputs on the device;
+where the backbone packs, else the full raster) and the SHPL COO build of
+the families that fuse by SHPL, the in-graph image resize and each
+family's own inputs are made on the device;
 ``forward_batch_fn`` runs the detector (serving under ``no_grad``;
 ``train=True`` with path drop and dropout drawn from a ``torch.Generator``),
 ``decode_batch`` the final NMS and ``loss_batch`` the training losses.
@@ -11,9 +12,12 @@ What differs by ``cfg.architecture`` comes from one table, ``FAMILIES``:
 the ``models.detector.Family`` each family module ends with (model, anchor
 grid, a frame's anchors and own inputs, decode, check). The families: the
 AVOD-style ``SparsePoolingDetector`` (``models.detector``), the MV3D-style
-``FusionRcnn`` (``models.fusion_rcnn``) and MV3D as published, ``Mv3d``
-(``models.mv3d``, serving only). A new family is its module, its
-configuration section and one entry here. Entry points take ``device``
+``FusionRcnn`` (``models.fusion_rcnn``), MV3D as published, ``Mv3d``
+(``models.mv3d``, serving only), and ContFuse, ``ContFuse``
+(``models.contfuse``, one stage, continuous fusion in place of SHPL, serving
+only). Each family's ``frame_inputs`` builds the inputs it reads, the
+SHPL families' through ``detector.shpl_inputs``. A new family is its
+module, its configuration section and one entry here. Entry points take ``device``
 (default ``"cuda"``) and raise when it is unavailable.
 """
 
@@ -28,10 +32,9 @@ import torch
 
 from sparse_pooling_tpu_torch import resolve_device
 from sparse_pooling_tpu_torch.configs.config import AreaExtents, ModelConfig
-from sparse_pooling_tpu_torch.models import detector, draws, fusion_rcnn, mv3d
+from sparse_pooling_tpu_torch.models import contfuse, detector, draws, fusion_rcnn, mv3d
 from sparse_pooling_tpu_torch.models.detector import Family
 from sparse_pooling_tpu_torch.models.loss import detector_loss_batch
-from sparse_pooling_tpu_torch.ops import bev_device, sparse_build
 from sparse_pooling_tpu_torch.ops.image_resize import resize_bilinear_batch
 from sparse_pooling_tpu_torch.runtime.graphs import GraphedCall
 from sparse_pooling_tpu_torch.runtime.profiling import span
@@ -52,7 +55,7 @@ class RawSample(NamedTuple):
 
 
 # architecture -> its family: the one place the port names them
-FAMILIES = {"avod": detector.FAMILY, "rcnn": fusion_rcnn.FAMILY, "mv3d": mv3d.FAMILY}
+FAMILIES = {"avod": detector.FAMILY, "rcnn": fusion_rcnn.FAMILY, "mv3d": mv3d.FAMILY, "contfuse": contfuse.FAMILY}
 
 
 def family(cfg: ModelConfig) -> Family:
@@ -266,54 +269,15 @@ def build_model_inputs_batch(
 
 def _build_inputs(batch: RawSample, anchors_static: torch.Tensor, path_keep: torch.Tensor, cfg: ModelConfig,
                   extents: AreaExtents) -> Dict[str, Any]:
-    """The input build's device work."""
+    """The input build's device work: the image, and the inputs the
+    family reads (``Family.frame_inputs``)."""
 
-    h, w = cfg.bev.grid_hw(extents)
-    hp, _ = cfg.bev.padded_hw(extents)
-    # packed where the backbone packs anyway (bit-identical inputs); an odd
-    # lattice with space_to_depth fails in the encoder, as in the reference
-    packed = cfg.backbone.space_to_depth and hp % 2 == 0 and w % 2 == 0
-    if packed:
-        bev_input, counts = bev_device.bev_maps_packed_batch(
-            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-        )
-    else:
-        bev_input = bev_device.bev_maps_from_points_batch(
-            batch.points, batch.points_mask, batch.ground_plane, extents, cfg.bev
-        )
     if cfg.image.device_resize and batch.image_scale is not None:
         image = resize_bilinear_batch(batch.image, batch.image_scale)
     else:
         image = batch.image.to(torch.float32) / 255.0
-    m_bev, m_fv = sparse_build.build_coo_device(
-        batch.points, batch.points_mask, batch.p2, extents, cfg.bev, cfg.image, cfg.sparse_pool
-    )
-
-    # occupancy raster: a 0/1 indicator for threshold <= 1 (the tier ranking
-    # sums this raster), raw counts above
-    thr = cfg.anchors.density_threshold
-    if packed:
-        occupancy = bev_device.unpack_s2d_raster(
-            counts if thr > 1 else (counts > 0).to(torch.float32), h)
-    elif thr <= 1:
-        occupancy = (bev_input[:, :h, :, cfg.bev.height_slices] > 0).to(torch.float32)
-    else:
-        occupancy = bev_device.bev_counts_from_points(
-            batch.points, batch.points_mask, extents, cfg.bev.voxel_size
-        )
-
-    frame = family(cfg).frame_inputs(batch, anchors_with_ground_y(anchors_static, batch.ground_plane),
-                                     occupancy, cfg, extents)
-    return {
-        "bev_input": bev_input,
-        "bev_pre_packed": packed,
-        "image": image,
-        "m_bev": m_bev,
-        "m_fv": m_fv,
-        **frame,
-        "p2": batch.p2,
-        "path_keep": path_keep,
-    }
+    frame = family(cfg).frame_inputs(batch, anchors_with_ground_y(anchors_static, batch.ground_plane), cfg, extents)
+    return {"image": image, **frame, "p2": batch.p2, "path_keep": path_keep}
 
 
 def sample_path_keep(generator: Optional[torch.Generator], cfg: ModelConfig,

@@ -8,7 +8,9 @@ scatter-add and each height slice from a scatter-amax.
 ``bev_maps_packed_batch`` keys the packed cell ``(row//2, col//2,
 sub = (row%2)*2 + col%2)`` so the full raster never exists (the same values,
 space-to-depth'ed); ``bev_counts_from_points`` is the anchor filter's
-per-cell count raster; ``bev_intensity_batch`` is MV3D's intensity channel,
+per-cell count raster; ``bev_occupancy_batch`` is ContFuse's (PIXOR's)
+occupancy of voxels as tall as they are wide, a scatter of ones;
+``bev_intensity_batch`` is MV3D's intensity channel,
 the reflectance of each cell's highest point (``cell_winner``: a
 scatter-amax, then the lowest index among the points that reach it). Plain
 PyTorch (``index_add_`` / ``scatter_reduce_``); a hand kernel is queued in
@@ -31,6 +33,13 @@ def _valid_mask(x, y, z, mask, extents: AreaExtents):
         & (y >= extents.y_min) & (y < extents.y_max)
         & (z >= extents.z_min) & (z < extents.z_max)
     )
+
+
+def points_in_extents(points: torch.Tensor, mask: torch.Tensor, extents: AreaExtents) -> torch.Tensor:
+    """The points [B, P, >=3] that the BEV maps count: ``mask`` [B, P] and
+    inside the area extents."""
+
+    return _valid_mask(points[..., 0], points[..., 1], points[..., 2], mask, extents)
 
 
 def _cells(points, mask, extents: AreaExtents, voxel_size: float, h: int, w: int):
@@ -190,6 +199,37 @@ def unpack_s2d_raster(grid: torch.Tensor, content_h: int) -> torch.Tensor:
     b, h2, w2, _ = grid.shape
     full = grid.reshape(b, h2, w2, 2, 2).permute(0, 1, 3, 2, 4).reshape(b, h2 * 2, w2 * 2)
     return full[:, :content_h]
+
+
+def bev_occupancy_batch(
+    points: torch.Tensor,  # [B, P, >=3] f32
+    mask: torch.Tensor,  # [B, P] bool
+    ground_plane: torch.Tensor,  # [B, 4] f32
+    extents: AreaExtents,
+    cfg: BevConfig,
+    height_lo: float,
+    height_hi: float,
+) -> torch.Tensor:
+    """ContFuse's BEV occupancy (PIXOR's representation): [B, H+pad, W, N]
+    f32, 1 where a valid point lies in the voxel, else 0. The N voxels of a
+    cell stack ``cfg.voxel_size`` apart from ``height_lo`` above the ground
+    plane: a point of height h above it is in voxel floor((h - height_lo) /
+    voxel_size) where that lies in [0, N), N = round((height_hi -
+    height_lo) / voxel_size); ``pad_h`` zero rows below the content."""
+
+    bsz = points.shape[0]
+    h, w = cfg.grid_hw(extents)
+    n = int(round((height_hi - height_lo) / cfg.voxel_size))
+    valid, row, col = _cells(points, mask, extents, cfg.voxel_size, h, w)
+    level = torch.floor((ground_heights(points, ground_plane) - height_lo) / cfg.voxel_size).to(torch.int64)
+    inside = valid & (level >= 0) & (level < n)
+    nk = h * w * n
+    off = (torch.arange(bsz, device=points.device, dtype=torch.int64) * (nk + 1))[:, None]
+    ids = (torch.where(inside, (row * w + col) * n + level, nk) + off).reshape(-1)
+    occ = torch.zeros(bsz * (nk + 1), dtype=torch.float32, device=points.device)
+    occ.index_fill_(0, ids, 1.0)
+    out = occ.reshape(bsz, nk + 1)[:, :nk].reshape(bsz, h, w, n)
+    return torch.nn.functional.pad(out, (0, 0, 0, 0, 0, cfg.pad_h))
 
 
 def bev_intensity_batch(

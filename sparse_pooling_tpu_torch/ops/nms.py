@@ -17,16 +17,35 @@ that XLA runs on the device; in eager PyTorch the plain loop dispatches about
 indices and validity bit for bit (its f32 arithmetic rounds where the plain
 loop's ops round; ``csrc/greedy_nms.cu`` states the contract). Boxes and
 scores reach it in float32; the kernel takes no other dtype.
+
+The kernel keeps a frame's scores in shared memory, so a call takes at most
+``max_candidates()`` candidates a frame. Above that (``candidate_limit``),
+``nms_batch`` first keeps the frame's ``max_candidates()`` best scores (a
+stable descending sort on the device, no wait on the host: of equal scores
+the lower index is kept), in their original order, runs the kernel on them
+and returns indices into the full set. That is the full set's greedy NMS
+while a kept candidate is still live: each round's best live score is then
+a kept one, and among equal scores the lower index comes first, as the
+plain loop picks. Where the kept set runs dry, fewer picks than asked while
+a candidate outside it still has a score, the answer may differ from the
+full set's: the call adds each such frame to a device counter, which
+``short_frames()`` reads.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+import sys
+from typing import Dict, NamedTuple
 
 import torch
 
 from sparse_pooling_tpu_torch import kernels
+
+
+# frames a call over more candidates than the kernel holds answered from a kept set that ran dry, a
+# counter on each device (added to on the device, read by short_frames)
+_SHORT: Dict[str, torch.Tensor] = {}
 
 
 class NmsResult(NamedTuple):
@@ -133,6 +152,13 @@ def _greedy_nms_fake(boxes, scores, max_outputs, iou_threshold):
     return boxes.new_empty(shape, dtype=torch.int64), boxes.new_empty(shape, dtype=torch.bool)
 
 
+def candidate_limit(boxes: torch.Tensor) -> int:
+    """The most candidates a frame one ``greedy_nms`` call takes on the
+    device of ``boxes``: the kernel's on a card, any number off it."""
+
+    return max_candidates() if boxes.is_cuda else sys.maxsize
+
+
 def nms_batch(
     boxes: torch.Tensor,  # [B, N, 4] [y1, x1, y2, x2]
     scores: torch.Tensor,  # [B, N]; -inf marks invalid boxes
@@ -140,10 +166,35 @@ def nms_batch(
     iou_threshold: float = 0.5,
 ) -> NmsResult:
     """Batch-native greedy NMS, ``torch.ops.spt.greedy_nms``: the kernel (one
-    launch) on CUDA tensors, ``nms_batch_plain`` on CPU tensors."""
+    launch) on CUDA tensors, ``nms_batch_plain`` on CPU tensors. Over more
+    candidates than ``candidate_limit``, on the best of them (the module's
+    docstring)."""
 
-    return NmsResult(*torch.ops.spt.greedy_nms(boxes.contiguous(), scores.to(torch.float32).contiguous(),
-                                               max_outputs, iou_threshold))
+    limit = candidate_limit(boxes)
+    scores = scores.to(torch.float32)
+    if boxes.shape[1] <= limit:
+        return NmsResult(*torch.ops.spt.greedy_nms(boxes.contiguous(), scores.contiguous(), max_outputs,
+                                                   iou_threshold))
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    kept = torch.sort(order[:, :limit], dim=1).values
+    idx, valid = torch.ops.spt.greedy_nms(torch.gather(boxes, 1, kept[..., None].expand(-1, -1, 4)).contiguous(),
+                                          torch.gather(scores, 1, kept).contiguous(), max_outputs, iou_threshold)
+    outside = torch.gather(scores, 1, order[:, limit:limit + 1])[:, 0] > -torch.inf
+    short = (valid.sum(dim=1) < max_outputs) & outside
+    counter = _SHORT.get(str(boxes.device))
+    if counter is None:
+        counter = _SHORT[str(boxes.device)] = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    counter.add_(short.sum())
+    # an invalid pick is index 0, as over the full set
+    return NmsResult(torch.where(valid, torch.gather(kept, 1, idx), 0), valid)
+
+
+def short_frames() -> int:
+    """The frames of this process's calls over more candidates than the
+    kernel holds whose kept set ran dry (the module's docstring), on every
+    device. Reads the counters (a wait for the card)."""
+
+    return sum(int(c.item()) for c in _SHORT.values())
 
 
 def top_k_nms_batch(

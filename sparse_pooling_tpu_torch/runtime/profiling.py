@@ -23,9 +23,13 @@ stacked into a page-locked host tensor and copied to the card without a
 wait, or stacked plainly off a card; ``pipeline.upload_counts`` counts the
 fields and bytes staged each way), ``inputs``
 (``build_model_inputs_batch``; MV3D's front view and BEV intensity in
-``inputs.front_view`` inside it), ``detector`` (the detector's forward) with
-``detector.encode`` (each view's encoder: two, MV3D's three),
-``detector.fusion`` (both SHPL layers), ``detector.rpn_nms``,
+``inputs.front_view`` inside it, ContFuse's points' canvas coordinates,
+lattice centres and KNN tables in ``inputs.knn``), ``detector`` (the
+detector's forward) with ``detector.encode`` (each view's encoder: two,
+MV3D's three; ContFuse's image stream, its BEV stream's groups and top-down
+path, opened once a stretch), ``detector.fusion`` (both SHPL layers;
+ContFuse's four continuous-fusion layers and the points' image features),
+``detector.rpn_nms``,
 ``detector.decode_maps`` (the AVOD and rcnn families' decoders) and
 ``detector.stage2`` inside it (MV3D's with ``detector.stage2.crops``, the
 three views' crops, and ``detector.stage2.head``, the deep-fusion head,
@@ -35,7 +39,7 @@ Where the input build replays CUDA graphs (``pipeline.build_model_inputs_batch``
 on a card, autograd off, a family whose ``frame_inputs`` wait on nothing), a
 captured call's graphs are split at its spans (``runtime/graphs.py``), so
 ``inputs`` times the copies in, the replay and the copies out, and
-``inputs.front_view`` the front view's own graph; ``pipeline.input_graph_counts``
+``inputs.front_view`` and ``inputs.knn`` their own graphs; ``pipeline.input_graph_counts``
 counts the captures, the replays and the calls built eagerly.
 :func:`routed` sends a block's spans elsewhere: nowhere, or to a capture.
 """

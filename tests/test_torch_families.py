@@ -19,13 +19,15 @@ from sparse_pooling_tpu_torch.data.synthetic_frame import synthetic_frame
 from sparse_pooling_tpu_torch.models import detector
 from sparse_pooling_tpu_torch.models import pipeline as pl
 from sparse_pooling_tpu_torch.models.detector import Family
+from test_torch_contfuse import frames as contfuse_frames
+from test_torch_contfuse import small_config as contfuse_small_config
 from test_torch_mv3d import frames as mv3d_frames
 from test_torch_mv3d import small_config as mv3d_small_config
 
 REPO = Path(__file__).resolve().parent.parent
 EXT = AreaExtents()
 PRESETS = {"avod": presets.cars_pyramid_config, "rcnn": presets.rcnn_cars_config,
-           "mv3d": presets.mv3d_cars_config}
+           "mv3d": presets.mv3d_cars_config, "contfuse": presets.contfuse_cars_config}
 
 
 def small(architecture):
@@ -34,6 +36,8 @@ def small(architecture):
 
     if architecture == "mv3d":
         return mv3d_small_config()
+    if architecture == "contfuse":
+        return contfuse_small_config()
     cfg = presets.unittest_config().model
     if architecture == "rcnn":
         cfg = dataclasses.replace(cfg, architecture="rcnn", avod=dataclasses.replace(cfg.avod, box_rep="offsets"))
@@ -43,6 +47,8 @@ def small(architecture):
 def small_frames(cfg):
     if cfg.architecture == "mv3d":
         return mv3d_frames(cfg)
+    if cfg.architecture == "contfuse":
+        return contfuse_frames(cfg)
     return [synthetic_frame(cfg, 600, seed) for seed in (0, 1)]
 
 
@@ -71,8 +77,9 @@ def test_an_unknown_architecture_is_named(entry):
 
 @pytest.mark.parametrize("architecture", list(PRESETS))
 def test_a_served_batch_selects_through_the_shared_module(architecture, monkeypatch):
-    """One RPN selection and ``num_classes`` final NMS calls a batch, each
-    through ``models.detector``'s module-level name, looked up at the call."""
+    """One RPN selection (none in the one-stage ContFuse) and
+    ``num_classes`` final NMS calls a batch, each through
+    ``models.detector``'s module-level name, looked up at the call."""
 
     cfg = small(architecture)
     model = pl.make_model(cfg, EXT, device="cpu")
@@ -93,7 +100,7 @@ def test_a_served_batch_selects_through_the_shared_module(architecture, monkeypa
     counted("nms_batch")
     out = pl.forward_batch_fn(model, batch, anchors, cfg, EXT)
     det = pl.decode_batch(out, batch.ground_plane, cfg, EXT)
-    assert calls == {"top_k_nms_batch": 1, "nms_batch": cfg.num_classes}
+    assert calls == {"top_k_nms_batch": int(architecture != "contfuse"), "nms_batch": cfg.num_classes}
     assert det["boxes_3d"].shape[:2] == (2, cfg.num_classes)
     assert out["anchor_valid"].shape == out["anchors"].shape[:2]
 

@@ -1,6 +1,6 @@
 """The port's hand kernels as PyTorch operators (``torch.ops.spt.*``).
 
-``torch.library.opcheck`` on each of the six operators with CPU inputs at
+``torch.library.opcheck`` on each of the seven operators with CPU inputs at
 edge shapes: the schema (no aliasing, no mutation), the fake implementation
 against the plain one (the CPU implementation) under fake tensors and
 dynamic shapes, and for kernels A and C the registered autograd (their
@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from sparse_pooling_tpu_torch import kernels
-from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, nms, sparse_pool  # noqa: F401 (registers)
+from sparse_pooling_tpu_torch.ops import crop_resize, ell_sparse_pool, knn, nms, sparse_pool  # noqa: F401 (registers)
 
-OPS = ("sparse_pool_patch", "sparse_pool_patch_bwd", "ell_sparse_pool", "group_crop", "group_crop_bwd", "greedy_nms")
+OPS = ("sparse_pool_patch", "sparse_pool_patch_bwd", "ell_sparse_pool", "group_crop", "group_crop_bwd", "greedy_nms",
+       "bev_knn")
 
 
 def _coo(b, hs, ws, p, t, seed):
@@ -136,8 +137,27 @@ def test_greedy_nms_operator(shape):
     assert torch.equal(idx, want.indices) and torch.equal(valid, want.valid)
 
 
+# (B, P, valid points, Q, K, limit): one point, no valid point, fewer points than K, a limit under the
+# points' spacing (K = 3 and a finite limit: what the operator takes)
+KNN_SHAPES = [(1, 1, 1, 3, 3, 200.0), (2, 9, 0, 4, 3, 10.0), (3, 20, 2, 7, 3, 200.0), (2, 40, 35, 11, 3, 6.0)]
+
+
+@pytest.mark.parametrize("shape", KNN_SHAPES)
+def test_bev_knn_operator(shape):
+    b, p, n, q, k, limit = shape
+    rng = np.random.RandomState(b * p + q)
+    points = torch.from_numpy(rng.uniform(-20, 20, (b, p, 4)).astype(np.float32))
+    valid = torch.zeros(b, p, dtype=torch.bool)
+    valid[:, :n] = True
+    queries = torch.from_numpy(rng.uniform(-20, 20, (q, 2)).astype(np.float32))
+    area = (-40.0, 40.0, 0.0, 70.4)
+    torch.library.opcheck(torch.ops.spt.bev_knn.default, (points, valid, queries, k, limit, *area))
+    assert torch.equal(torch.ops.spt.bev_knn(points, valid, queries, k, limit, *area),
+                       knn.bev_knn_plain(points, valid, queries, k, limit, *area))
+
+
 def test_every_kernel_is_an_operator_of_one_namespace():
-    """Six operators under ``spt``, each with CPU and CUDA kernels and a
+    """Seven operators under ``spt``, each with CPU and CUDA kernels and a
     fake one; A and C with autograd. The raw launchers still refuse CPU
     tensors (``tests/test_torch_port.py``)."""
 

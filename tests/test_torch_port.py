@@ -79,6 +79,23 @@ def test_import_check_covers_the_rcnn_module():
     assert "sparse_pooling_tpu_torch/models/fusion_rcnn.py" in names
 
 
+def test_import_check_covers_the_contfuse_modules():
+    """The ContFuse family, its KNN operator and its test reference import
+    neither JAX nor the JAX package; the reference no kernel of the port."""
+
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for module in ("models/contfuse.py", "ops/knn.py"):
+        assert f"sparse_pooling_tpu_torch/{module}" in names, module
+    for path in (REPO / "tests" / "contfuse_reference.py", REPO / "benchmark" / "reference" / "contfuse.py"):
+        roots = _imported_roots(path)
+        assert not roots & set(FORBIDDEN), path
+        assert roots <= {"__future__", "dataclasses", "math", "typing", "numpy", "torch", "sparse_pooling_tpu_torch"}
+    port = [node.module for node in ast.walk(ast.parse((REPO / "tests" / "contfuse_reference.py").read_text()))
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("sparse_pooling_tpu_torch")]
+    assert port == ["sparse_pooling_tpu_torch.models.layers"]  # plain NHWC wrappers of torch.nn, no kernel
+    assert "sparse_pooling_tpu_torch" not in _imported_roots(REPO / "benchmark" / "reference" / "contfuse.py")
+
+
 def test_import_check_covers_the_export_preprocess_and_demo_modules():
     """No JAX, no PIL and no ``sparse_pooling_tpu`` in the serving export,
     the offline preprocessing, its host data modules and the demos."""
